@@ -20,7 +20,20 @@ findings for each:
   3. CUDA-event timings (median of 25 runs after warm-up) of the full
      `spgemm`, the serving form `spgemm_fixed(cap=nnz)`, each layer of the
      path, and each kernel against its plain version; the device's busy
-     time per `spgemm` from a torch.profiler trace, and its idle share.
+     time per `spgemm` from a torch.profiler trace, and its idle share;
+  4. the four SpMV/SpMM kernels against their plain versions and scipy's
+     float64 product, per row within 1e-6 of the row's absolute sum
+     (|A|@|x|)_i, at five cells (SpMV 1024^2/0.1, 16384^2/5e-3 and a
+     2^20-row power-law matrix; SpMM 10000^2/0.01 and the power-law matrix,
+     k = 64) and at an edge CSR, each bitwise on rerun;
+  5. the SpMV/SpMM entry points (`spmv` per call and with each tagged plan,
+     `spmv(transa=True)`, `spmm` per call and with the routed plan,
+     `A @ x`, `A @ X`) at those cells against scipy, bitwise on rerun, with
+     every kernel's launch count as expected;
+  6. their CUDA-event timings: each kernel against its plain version,
+     `spmv` by plan tag, plan builds on the host clock, Gnnz/s and
+     G MAC/s, the device's busy time and idle share from a profiler trace,
+     and torch's own CSR @ dense (cuSPARSE) as a comparator off the path.
 
 Then one JSON line of per-kernel results, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
@@ -31,6 +44,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -41,11 +55,15 @@ import scipy.sparse as sp
 import torch
 
 import spmm_tpu_torch as pt
+from spmm_tpu_torch.models import power_law_rows
 from spmm_tpu_torch.ops.kernels import _build
 from spmm_tpu_torch.ops.kernels.densify_onehot import (densify_onehot,
                                                        densify_onehot_plain)
 from spmm_tpu_torch.ops.kernels.extract_roll import (extract_roll,
                                                      extract_roll_plain)
+from spmm_tpu_torch.ops.kernels import spmv_binned as kb
+from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+from spmm_tpu_torch.ops.kernels import spmv_routed as kr
 
 # the module, not the function `spmm_tpu_torch.ops.spgemm` re-exports
 sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
@@ -145,7 +163,32 @@ def phase0():
     print(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"card [{smi}], kernels built in {build_s:.2f} s -> "
           f"{lib.relative_to(_build.BUILD_DIR.parents[1])}", flush=True)
+    ptxas = (ptxas_summary(_build.PTXAS_REPORT)
+             or ["no report: the library came from an earlier build"])
+    print("phase 0: ptxas " + "; ".join(ptxas), flush=True)
     return smi
+
+
+def ptxas_summary(reports):
+    """'kernel: N registers, S bytes spilled' per kernel of the build's
+    `ptxas -v` output (empty when the library came from an earlier
+    build)."""
+    out, name, spill = [], None, "0"
+    for line in "\n".join(reports).splitlines():
+        if "Function properties for" in line:
+            name, spill = line.split("for", 1)[1].strip(), "0"
+            # a kernel in an anonymous namespace mangles as
+            # _ZN<len>_GLOBAL__N__<hash>_<file>_cu_<hash><len><name>...
+            hit = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if hit:
+                name = name[hit.end():hit.end() + int(hit.group(1))]
+        elif "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            out.append(f"{name[:40]}: {regs} registers, {spill} B spilled")
+            name = None
+    return out
 
 
 def make_cells(dev):
@@ -236,8 +279,10 @@ def phase2(cells):
         outs.append((pt.spgemm(a, b, alg=0), pt.spgemm(a, b, alg=0)))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    # 2 runs x 2 operands densified, 2 runs x 1 extraction, per cell
-    want = {"densify_onehot": 4 * len(cells), "extract_roll": 2 * len(cells)}
+    # 2 runs x 2 operands densified, 2 runs x 1 extraction, per cell; the
+    # SpMV/SpMM kernels are not on this path
+    want = dict.fromkeys(launches, 0)
+    want.update(densify_onehot=4 * len(cells), extract_roll=2 * len(cells))
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes, nnzs = [], {}
@@ -311,6 +356,312 @@ def phase3(cells, nnzs, smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# SpMV / SpMM (phases 4-6)
+# --------------------------------------------------------------------------
+
+ROW_TOL = 1e-6   # |y - y64|_i <= ROW_TOL * (|A| @ |x|)_i
+SPMM_K = 64      # the JAX package's SpMM width
+SPMV_KERNELS = ("spmv_binned", "spmv_routed", "spmv_onehot")
+
+
+def powerlaw(dev) -> pt.CSR:
+    """2^20 x 2^20, 16 entries a row on average, alpha 1.5, seed 0
+    (`spmm_tpu/models/matrices.py:71-88`): > 99 % empty rows and a few full
+    rows of 2^20 entries."""
+    return power_law_rows(1 << 20, 1 << 20, 16, alpha=1.5, seed=0,
+                          device=dev)
+
+
+def make_spmv_cells(dev):
+    """(name, A, x or X) per SpMV and SpMM cell; x and X are N(0,1) from a
+    seed.  Sources: BASELINE.md:46, BENCH_SUMMARY.md:327 and :161,
+    spmm_tpu/models/matrices.py:71-88."""
+    rng = np.random.default_rng(2024)
+    plaw = powerlaw(dev)
+
+    def vec(n, k=None):
+        shape = (n,) if k is None else (n, k)
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    spmv_cells = [
+        ("spmv 1024^2/0.1", pt.random(1024, 1024, 0.1, seed=2008,
+                                      device=dev)),
+        ("spmv 16384^2/5e-3", pt.random(16384, 16384, 5e-3, seed=2014,
+                                        device=dev)),
+        ("spmv powerlaw 2^20", plaw),
+    ]
+    spmm_cells = [
+        ("spmm 10000^2/0.01 k=64", pt.random(10000, 10000, 0.01, seed=2015,
+                                              device=dev)),
+        ("spmm powerlaw 2^20 k=64", plaw),
+    ]
+    return ([(n, a, vec(a.shape[1])) for n, a in spmv_cells],
+            [(n, a, vec(a.shape[1], SPMM_K)) for n, a in spmm_cells])
+
+
+def edge_csr_full_row(dev) -> pt.CSR:
+    """`edge_csr` with row 20 made full (all 45 columns)."""
+    m = edge_csr("cpu").to_scipy().tolil()
+    m[20, :] = np.linspace(-1.0, 1.0, 45, dtype=np.float32)
+    m = m.tocsr()
+    m.sort_indices()
+    m.data[3] = 0.0  # keep a stored zero
+    return pt.CSR.from_scipy(m, device=dev)
+
+
+class RowCheck:
+    """scipy float64 reference of A @ x (x a vector or a matrix) and the
+    rows' absolute sums |A| @ |x|, made once per (A, x)."""
+
+    def __init__(self, a, x, transa=False):
+        s = a.to_scipy().astype(np.float64)
+        if transa:
+            s = s.T.tocsr()
+        x64 = x.double().cpu().numpy()
+        self.ref = s @ x64
+        self.rowabs = abs(s) @ np.abs(x64)
+
+    def ratio(self, y, what) -> float:
+        """max over cells of |y - ref| / (ROW_TOL * rowabs); fails above 1
+        or on a non-finite value or a wrong shape."""
+        got = y.double().cpu().numpy()
+        if got.shape != self.ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{what}: shape {got.shape} (expected "
+                                 f"{self.ref.shape}) or non-finite values")
+        err = np.abs(got - self.ref)
+        tol = ROW_TOL * self.rowabs
+        bad = err > tol
+        if bad.any():
+            raise AssertionError(f"{what}: {int(bad.sum())} cells off "
+                                 f"scipy float64 by more than "
+                                 f"{ROW_TOL}*(|A|@|x|)_i")
+        scale = np.maximum(tol, 1e-300)
+        return float((err / scale).max()) if err.size else 0.0
+
+
+def _kernel_runs(name, a, x):
+    """(kernel output, its rerun, plain output) of one kernel on a."""
+    m, n = a.shape
+    args = (a.indptr, a.indices, a.data)
+    if name == "spmv_binned":
+        p = kb.spmv_binned_plan(*args, m, n)
+        run, plain = (lambda: kb.spmv_binned(x, p),
+                      lambda: kb.spmv_binned_plain(x, p))
+    elif name == "spmv_onehot":
+        p = ko.spmv_onehot_plan(a.indptr, m, n)
+        run = lambda: ko.spmv_onehot(*args, x, m, n, p)  # noqa: E731
+        plain = lambda: ko.spmv_onehot_plain(*args, x, m, n, p)  # noqa: E731
+    elif name == "spmv_routed":
+        p = kr.spmv_routed_plan(*args, m, n)
+        run, plain = (lambda: kr.spmv_routed(x, p),
+                      lambda: kr.spmv_routed_plain(x, p))
+    else:  # spmm_routed, over the serving plan and over the per-call one
+        p = kr.spmv_routed_plan(*args, m, n, sell=(name == "spmm_routed"))
+        run, plain = (lambda: kr.spmm_routed(x, p),
+                      lambda: kr.spmm_routed_plain(x, p))
+    return run(), run(), plain()
+
+
+def phase4(dev, spmv_cells, spmm_cells):
+    """Each SpMV/SpMM kernel against its plain version and scipy on the
+    card; returns (max |kernel - plain| per kernel, worst ratio per kernel
+    and cell)."""
+    edge = edge_csr_full_row(dev)
+    rng = np.random.default_rng(7)
+    ex = torch.from_numpy(rng.standard_normal(45).astype(np.float32)).to(dev)
+    eX = torch.from_numpy(rng.standard_normal((45, 33)).astype(
+        np.float32)).to(dev)
+    jobs = [(k, name, a, x) for name, a, x in
+            spmv_cells + [("edge 37x45", edge, ex)] for k in SPMV_KERNELS]
+    jobs += [(k, name, a, x) for name, a, x in
+             spmm_cells + [("edge 37x45 k=33", edge, eX)]
+             for k in ("spmm_routed", "spmm_routed_percall")]
+    err = {k: 0.0 for k in (*SPMV_KERNELS, "spmm_routed")}
+    ratios = {}
+    checks = {}
+    for kernel, name, a, x in jobs:
+        key = (name, id(x))
+        if key not in checks:
+            checks[key] = RowCheck(a, x)
+        got, again, plain = _kernel_runs(kernel, a, x)
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError(f"{kernel} at {name}: rerun not bitwise")
+        r_k = checks[key].ratio(got, f"{kernel} at {name}")
+        r_p = checks[key].ratio(plain, f"{kernel} plain at {name}")
+        base = "spmm_routed" if kernel.startswith("spmm") else kernel
+        err[base] = max(err[base], max_abs(got, plain))
+        ratios[f"{kernel} @ {name}"] = [r_k, r_p]
+        del got, again, plain
+    print("phase 4: worst |y - y64| / (1e-6 |A||x|)_i, [kernel, plain]: "
+          + json.dumps(ratios), flush=True)
+    return err, ratios, checks
+
+
+def phase5(spmv_cells, spmm_cells, checks):
+    """The entry points at every cell, against scipy, bitwise on rerun, and
+    with each kernel's launch count as expected; returns the counts."""
+    runs = []
+    for name, a, x in spmv_cells:
+        routed = pt.spmv_plan(a)
+        onehot = ("onehot", ko.spmv_onehot_plan(a.indptr, *a.shape))
+        runs += [
+            (f"spmv(a, x) @ {name}", lambda a=a, x=x: pt.spmv(a, x),
+             (name, id(x))),
+            (f"spmv(plan=routed) @ {name}",
+             lambda a=a, x=x, p=routed: pt.spmv(a, x, plan=p), (name, id(x))),
+            (f"spmv(plan=onehot) @ {name}",
+             lambda a=a, x=x, p=onehot: pt.spmv(a, x, plan=p), (name, id(x))),
+            (f"spmv(transa) @ {name}",
+             lambda a=a, x=x: pt.spmv(a, x, transa=True), (name, "T")),
+            (f"a @ x @ {name}", lambda a=a, x=x: a @ x, (name, id(x))),
+        ]
+        checks[(name, "T")] = RowCheck(a, x, transa=True)
+    for name, a, X in spmm_cells:
+        routed = pt.spmv_plan(a)
+        runs += [
+            (f"spmm(a, X) @ {name}", lambda a=a, X=X: pt.spmm(a, X),
+             (name, id(X))),
+            (f"spmm(plan=routed) @ {name}",
+             lambda a=a, X=X, p=routed: pt.spmm(a, X, plan=p), (name, id(X))),
+            (f"a @ X @ {name}", lambda a=a, X=X: a @ X, (name, id(X))),
+        ]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [(what, fn(), fn(), key) for what, fn, key in runs]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    nspmv, nspmm = len(spmv_cells), len(spmm_cells)
+    # a @ X goes dense (densify + one GEMM) where A's density reaches the
+    # break-even curve, else to spmm_routed
+    dense = sum(a.density >= pt.break_even_density(*a.shape, X.shape[1])
+                for _, a, X in spmm_cells)
+    want = {"densify_onehot": 2 * dense, "extract_roll": 0,
+            "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
+            "spmv_onehot": 2 * nspmv,
+            "spmm_routed": 2 * (2 * nspmm + nspmm - dense)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    notes = {}
+    for what, y1, y2, key in outs:
+        if not same_bits(y1, y2):
+            raise AssertionError(f"{what}: rerun not bitwise")
+        notes[what] = checks[key].ratio(y1, what)
+    print(f"phase 5: launches {launches}; worst ratio per entry point "
+          + json.dumps(notes), flush=True)
+    return launches
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host-clock time of `fn` ending in a device sync."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _torch_csr(a):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # beta notices
+        return torch.sparse_csr_tensor(a.indptr.long(), a.indices.long(),
+                                       a.data, a.shape)
+
+
+def phase6(spmv_cells, spmm_cells, smi):
+    """CUDA-event medians per cell; returns the table rows."""
+    rows = []
+    for name, a, x in spmv_cells:
+        m, n = a.shape
+        args = (a.indptr, a.indices, a.data)
+        routed = kr.spmv_routed_plan(*args, m, n)
+        binned = kb.spmv_binned_plan(*args, m, n)
+        onehot = ko.spmv_onehot_plan(a.indptr, m, n)
+        ta = _torch_csr(a)
+        row = {
+            "cell": name, "nnz": a.nnz, "routed_slack": routed.slack,
+            "plan_routed_host_ms": host_ms(
+                lambda: kr.spmv_routed_plan(*args, m, n)),
+            "plan_binned_host_ms": host_ms(
+                lambda: kb.spmv_binned_plan(*args, m, n)),
+            "plan_onehot_host_ms": host_ms(
+                lambda: ko.spmv_onehot_plan(a.indptr, m, n)),
+            "spmv_binned_ms": median_ms(lambda: kb.spmv_binned(x, binned)),
+            "spmv_binned_plain_ms": median_ms(
+                lambda: kb.spmv_binned_plain(x, binned)),
+            "spmv_routed_ms": median_ms(lambda: kr.spmv_routed(x, routed)),
+            "spmv_routed_plain_ms": median_ms(
+                lambda: kr.spmv_routed_plain(x, routed)),
+            "spmv_onehot_ms": median_ms(
+                lambda: ko.spmv_onehot(*args, x, m, n, onehot)),
+            "spmv_onehot_plain_ms": median_ms(
+                lambda: ko.spmv_onehot_plain(*args, x, m, n, onehot)),
+            "spmv_call_ms": median_ms(lambda: pt.spmv(a, x)),
+            "spmv_tag_routed_ms": median_ms(
+                lambda: pt.spmv(a, x, plan=("routed", routed))),
+            "spmv_tag_binned_ms": median_ms(
+                lambda: pt.spmv(a, x, plan=("binned", binned))),
+            "spmv_tag_onehot_ms": median_ms(
+                lambda: pt.spmv(a, x, plan=("onehot", onehot))),
+            "spmv_transa_ms": median_ms(lambda: pt.spmv(a, x, transa=True)),
+            "torch_csr_mv_ms": median_ms(lambda: torch.mv(ta, x)),
+        }
+        for tag in ("call", "tag_routed", "tag_binned", "tag_onehot"):
+            row[f"spmv_{tag}_gnnz_s"] = a.nnz / row[f"spmv_{tag}_ms"] / 1e6
+        busy, top = device_profile(
+            lambda: pt.spmv(a, x, plan=("routed", routed)))
+        row["spmv_tag_routed_device_busy_ms"] = busy
+        row["spmv_tag_routed_idle_share"] = (
+            None if busy is None else 1.0 - busy / row["spmv_tag_routed_ms"])
+        busy, top = device_profile(lambda: pt.spmv(a, x))
+        row["spmv_call_device_busy_ms"] = busy
+        row["spmv_call_idle_share"] = (
+            None if busy is None else 1.0 - busy / row["spmv_call_ms"])
+        row["spmv_call_device_top_ms"] = top
+        rows.append(row)
+        del ta
+        print(f"phase 6 [{smi}]: " + json.dumps(row), flush=True)
+    for name, a, X in spmm_cells:
+        m, n = a.shape
+        k = X.shape[1]
+        args = (a.indptr, a.indices, a.data)
+        routed = kr.spmv_routed_plan(*args, m, n)
+        percall = kr.spmv_routed_plan(*args, m, n, sell=False)
+        ta = _torch_csr(a)
+        row = {
+            "cell": name, "nnz": a.nnz, "k": k,
+            "plan_routed_host_ms": host_ms(
+                lambda: kr.spmv_routed_plan(*args, m, n)),
+            "plan_percall_host_ms": host_ms(
+                lambda: kr.spmv_routed_plan(*args, m, n, sell=False)),
+            "spmm_routed_ms": median_ms(lambda: kr.spmm_routed(X, routed)),
+            "spmm_routed_percall_plan_ms": median_ms(
+                lambda: kr.spmm_routed(X, percall)),
+            "spmm_routed_plain_ms": median_ms(
+                lambda: kr.spmm_routed_plain(X, routed)),
+            "spmm_call_ms": median_ms(lambda: pt.spmm(a, X)),
+            "spmm_tag_routed_ms": median_ms(
+                lambda: pt.spmm(a, X, plan=("routed", routed))),
+            "torch_csr_mm_ms": median_ms(lambda: ta @ X),
+        }
+        for key in ("spmm_routed", "spmm_call", "spmm_tag_routed"):
+            row[f"{key}_gmac_s"] = a.nnz * k / row[f"{key}_ms"] / 1e6
+        busy, top = device_profile(lambda: pt.spmm(a, X))
+        row["spmm_call_device_busy_ms"] = busy
+        row["spmm_call_idle_share"] = (
+            None if busy is None else 1.0 - busy / row["spmm_call_ms"])
+        row["spmm_call_device_top_ms"] = top
+        rows.append(row)
+        del ta
+        print(f"phase 6 [{smi}]: " + json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -318,6 +669,16 @@ def main():
     err = phase1(dev, cells)
     launches, nnzs = phase2(cells)
     rows = phase3(cells, nnzs, smi)
+    del cells
+    spmv_cells, spmm_cells = make_spmv_cells(dev)
+    err4, _, checks = phase4(dev, spmv_cells, spmm_cells)
+    launches5 = phase5(spmv_cells, spmm_cells, checks)
+    del checks
+    rows6 = phase6(spmv_cells, spmm_cells, smi)
+    # times of the new kernels at the streaming cells: SpMV 16384^2/5e-3,
+    # SpMM 10000^2/0.01
+    t_mv = rows6[1]
+    t_mm = next(r for r in rows6 if r["cell"] == spmm_cells[0][0])
     head = rows[0]
     kernels = [
         {"name": "densify_onehot", "route": "cuda",
@@ -332,7 +693,38 @@ def main():
          "launches": launches["extract_roll"],
          "max_abs_err": err["extract_roll"],
          "ms": head["extract_ms"], "plain_ms": head["extract_plain_ms"]},
+        {"name": "spmv_binned", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/spmv_binned.cu",
+         "replaces": "spmm_tpu/ops/kernels/spmv_binned.py:272",
+         "launches": launches5["spmv_binned"],
+         "max_abs_err": err4["spmv_binned"],
+         "ms": t_mv["spmv_binned_ms"],
+         "plain_ms": t_mv["spmv_binned_plain_ms"]},
+        {"name": "spmv_routed", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/spmv_routed.cu",
+         "replaces": "spmm_tpu/ops/kernels/spmv_routed.py:865",
+         "launches": launches5["spmv_routed"],
+         "max_abs_err": err4["spmv_routed"],
+         "ms": t_mv["spmv_routed_ms"],
+         "plain_ms": t_mv["spmv_routed_plain_ms"]},
+        {"name": "spmm_routed", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/spmm_routed.cu",
+         "replaces": "spmm_tpu/ops/kernels/spmv_routed.py:1054",
+         "launches": launches5["spmm_routed"],
+         "max_abs_err": err4["spmm_routed"],
+         "ms": t_mm["spmm_routed_ms"],
+         "plain_ms": t_mm["spmm_routed_plain_ms"]},
+        {"name": "spmv_onehot", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/spmv_onehot.cu",
+         "replaces": "spmm_tpu/ops/kernels/spmv_onehot.py:147",
+         "launches": launches5["spmv_onehot"],
+         "max_abs_err": err4["spmv_onehot"],
+         "ms": t_mv["spmv_onehot_ms"],
+         "plain_ms": t_mv["spmv_onehot_plain_ms"]},
     ]
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels not launched by their path: {missing}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

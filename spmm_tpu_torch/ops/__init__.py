@@ -1,8 +1,14 @@
-"""Sparse operations of the port: alg1 SpGEMM and `@` dispatch."""
+"""Sparse operations of the port: alg1 SpGEMM, SpMV, SpMM and `@`
+dispatch."""
 
-from spmm_tpu_torch.ops.dispatch import matmul  # noqa: F401
+from spmm_tpu_torch.ops.dispatch import (  # noqa: F401
+    break_even_density,
+    matmul,
+)
 from spmm_tpu_torch.ops.spgemm import (  # noqa: F401
     spgemm,
     spgemm_fixed,
     spgemm_nnz_estimate,
 )
+from spmm_tpu_torch.ops.spmm import spmm  # noqa: F401
+from spmm_tpu_torch.ops.spmv import spmv, spmv_plan  # noqa: F401

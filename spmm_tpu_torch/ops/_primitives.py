@@ -1,9 +1,11 @@
 """Tensor building blocks shared by the container and the kernels.
 
-Ports the slice of `spmm_tpu/ops/_primitives.py` that the alg1 SpGEMM path
-needs.  Indices are int32 (`INDEX_DTYPE`), as in the JAX package; flat
-dense offsets are formed in int64, since row*k+col passes 2^31 at large
-shapes.  Everything is deterministic: no float atomics.
+Ports the slice of `spmm_tpu/ops/_primitives.py` that the alg1 SpGEMM,
+SpMV and SpMM paths need.  Indices are int32 (`INDEX_DTYPE`), as in the
+JAX package; flat dense offsets are formed in int64, since row*k+col passes
+2^31 at large shapes.  Everything is deterministic on the CPU; on a CUDA
+tensor only `segment_sum_rows` (a plain version, never on a card path)
+adds with atomics.
 """
 
 from __future__ import annotations
@@ -38,6 +40,37 @@ def is_sorted_canonical(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     row_ok = row[1:] > row[:-1]
     col_ok = (row[1:] == row[:-1]) & (col[1:] > col[:-1])
     return torch.all(row_ok | col_ok)
+
+
+def csr_transpose(indptr: torch.Tensor, indices: torch.Tensor,
+                  data: torch.Tensor, shape: Tuple[int, int]):
+    """(indptr, indices, data) of the CSR of Aᵀ, shape (n, m).
+
+    A stable sort of the entries on column keeps them in row order within
+    each new row, so a canonical A gives a canonical Aᵀ, and the result is
+    deterministic on every device.  The new indptr comes from
+    `searchsorted`, which needs no host sync."""
+    m, n = shape
+    order = torch.sort(indices, stable=True).indices
+    cols_sorted = indices[order]
+    rows = rows_from_indptr(indptr, data.numel())
+    bounds = torch.arange(n + 1, dtype=cols_sorted.dtype,
+                          device=indices.device)
+    t_indptr = torch.searchsorted(cols_sorted, bounds, out_int32=True)
+    return t_indptr, rows[order], data[order]
+
+
+def segment_sum_rows(values: torch.Tensor, indptr: torch.Tensor
+                     ) -> torch.Tensor:
+    """Per-row sums of `values` (nnz,) or (nnz, k) over a CSR's rows: the
+    plain version of the SpMV/SpMM reductions.  `index_add_` is
+    deterministic on the CPU; on a CUDA tensor it adds with atomics, so
+    reruns there may differ in the last bits (the kernels do not)."""
+    m = indptr.numel() - 1
+    rows = rows_from_indptr(indptr, values.shape[0])
+    out = torch.zeros((m, *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, rows, values)
 
 
 def csr_to_dense_canonical(indptr: torch.Tensor, indices: torch.Tensor,

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels of `csrc/`.
 
-All of `spmm_tpu_torch/csrc/*.cu` is compiled by `nvcc` into one shared
-library with a plain C interface, on first use, into `build/spmm_tpu_torch/`
-beside the package.  The library's name carries a hash of the sources and
-flags, so an edit rebuilds and an unchanged tree reuses the file.  It is
+Each `spmm_tpu_torch/csrc/*.cu` is compiled by its own `nvcc`, all started
+together, and the objects are linked into one shared library with a plain C
+interface, on first use, into `build/spmm_tpu_torch/` beside the package.
+The library's name carries a hash of the sources, headers and flags, so an
+edit rebuilds and an unchanged tree reuses the file.  It is
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`
 (a default ctypes int would cut a 64-bit pointer to 32 bits).
 
@@ -30,19 +31,38 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "spmm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+# what `ptxas -v` said of each kernel (registers, spills) at the last build
+PTXAS_REPORT = []
 
-LAUNCHES = {"densify_onehot": 0, "extract_roll": 0}
+LAUNCHES = {"densify_onehot": 0, "extract_roll": 0, "spmv_binned": 0,
+            "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # indptr, indices, data, val, pat, m, k, stream
-    "spmm_densify": (_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P),
+    "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _P),
     # mask, counts, m, n, stream
     "spmm_extract_count": (_P, _P, _I, _I, _P),
     # c, mask, indptr, col, vals, m, n, cap, stream
     "spmm_extract_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # indptr, indices, data, x, rows, class_off, y, m, stream
+    "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # slice_ptr, slice_rows, sell_col, sell_val, nslices,
+    # indices, data, chunk_start, chunk_end, nchunks,
+    # long_rows, long_chunk_ptr, nlong, x, partial, y, stream
+    "spmm_spmv_routed": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                         _P, _P, _I, _P, _P, _P, _P),
+    # indptr, indices, data, order, nrows, cut, chunk_start, chunk_end,
+    # nchunks, long_rows, long_chunk_ptr, nlong, x, k, partial, y, stream
+    "spmm_spmm_routed": (_P, _P, _P, _P, _I, _I, _P, _P, _I,
+                         _P, _P, _I, _P, _I, _P, _P, _P),
+    # indptr, indices, data, x, row_s, row_e, nchunks, ch, nnz,
+    # carry_first, carry_last, y, stream
+    "spmm_spmv_onehot": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _P, _P, _P, _P),
 }
 
 
@@ -53,6 +73,10 @@ def reset_launches() -> None:
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -72,21 +96,43 @@ def build() -> Path:
     build is already there; return the library's path."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    lib = BUILD_DIR / f"libspmm_tpu_torch_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    lib = BUILD_DIR / f"libspmm_tpu_torch_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    # one nvcc per source, all started together, then one link
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o" for s in srcs]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          str(o), str(s)] for s, o in zip(srcs, objs))]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        PTXAS_REPORT.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: no process sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 

@@ -20,6 +20,7 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
+from spmm_tpu_torch.ops.kernels._checks import check_csr
 
 
 def densify_onehot_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -35,35 +36,15 @@ def densify_onehot_plain(indptr: torch.Tensor, indices: torch.Tensor,
     return val, pat
 
 
-def _check(indptr, indices, data, m: int, k: int) -> None:
-    for name, t, dtype in (("indptr", indptr, prim.INDEX_DTYPE),
-                           ("indices", indices, prim.INDEX_DTYPE),
-                           ("data", data, torch.float32)):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"densify_onehot: {name} must be a contiguous "
-                             f"1-D {dtype} tensor, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != data.device:
-            raise ValueError(f"densify_onehot: {name} is on {t.device}, "
-                             f"data on {data.device}")
-    if indptr.numel() != m + 1:
-        raise ValueError(f"densify_onehot: indptr has {indptr.numel()} "
-                         f"entries for {m} rows")
-    if indices.numel() != data.numel():
-        raise ValueError("densify_onehot: indices and data differ in length")
-
-
 def densify_onehot(indptr: torch.Tensor, indices: torch.Tensor,
                    data: torch.Tensor, m: int, k: int,
                    with_pattern: bool = True
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dense (m, k) f32 values and, when `with_pattern`, the (m, k) bf16
     structural 0/1 pattern (explicit zeros kept) of a canonical CSR."""
-    _check(indptr, indices, data, m, k)
+    check_csr(indptr, indices, data, m, "densify_onehot")
     if data.device.type == "cpu":
         return densify_onehot_plain(indptr, indices, data, m, k, with_pattern)
-    if data.device.type != "cuda":
-        raise ValueError(f"densify_onehot: unsupported device {data.device}")
     val = torch.zeros((m, k), dtype=torch.float32, device=data.device)
     pat = (torch.zeros((m, k), dtype=torch.bfloat16, device=data.device)
            if with_pattern else None)

@@ -1,0 +1,277 @@
+"""The serving SpMV and SpMM over a plan made once: SELL-32-sigma rows plus
+chunked long rows.
+
+Port of `spmm_tpu/ops/kernels/spmv_routed.py` (`spmv_routed_plan`,
+`spmv_routed`, `spmm_routed`; Pallas `_spmv_routed_call`,
+`_spmm_routed_call`, `_spmm_routed_call_matsum`,
+`_spmm_routed_call_fused`).  The TPU plan edge-colours every 128-row group
+(König) so that lane gathers and one static permute route each product to
+its row's lane; that exists because a TPU cannot gather, and none of it
+carries over.  The idea kept is the serving one: analyse the structure
+once, re-lay the values so that the kernel streams them with no index work.
+
+The port's plan, built on the matrix's device (a few host syncs for sizes):
+
+  * rows of length <= `cut` go to SELL-32-sigma slices: sorted longest
+    first within windows of `SIGMA` rows, 32 to a slice, each slice as wide
+    as its longest row and stored column-major (`sell_col`, `sell_val`);
+    dead slots carry val 0.0 and col 0, as the TPU plan's `val_tbl` does;
+  * rows longer than `cut` are cut into chunks of at most `ch` entries
+    (`chunk_start`, `chunk_end`), summed a warp each and combined per row in
+    chunk order, so no thread walks a long row alone.
+
+`csrc/spmv_routed.cu` runs the SpMV over it; `csrc/spmm_routed.cu` runs the
+SpMM with the plan's row order and the CSR arrays (a warp per row and 32
+columns of X, and the same chunks for the long rows).  `slack` is slots /
+nnz, the statistic the JAX plan reports.  A plan made with `sell=False`
+carries only the long-row chunks: it serves `spmm_routed` (a per-call
+`spmm`), not `spmv_routed`.
+
+Not copied from the TPU plan: its limit `n <= C*16384/R` (the x table's
+reach), its rejection of pathological class skew, and its None for an
+empty matrix (the public `spmv_plan` keeps that None).  This plan takes any
+canonical f32 CSR.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from spmm_tpu_torch.ops import _primitives as prim
+from spmm_tpu_torch.ops.kernels import _build
+from spmm_tpu_torch.ops.kernels._checks import check_csr, check_dense
+
+CUT = 256        # rows longer than this leave the slices
+CH = 512         # entries per chunk of a long row
+SIGMA = 16384    # rows per sorting window
+SLICE = 32       # rows per slice: one warp, a lane per row
+
+INDEX_DTYPE = prim.INDEX_DTYPE
+
+
+class SpmvRoutedPlan(NamedTuple):
+    m: int
+    n: int
+    cut: int
+    ch: int
+    indptr: torch.Tensor          # (m+1,) i32 — the plan's CSR
+    indices: torch.Tensor         # (nnz,) i32
+    data: torch.Tensor            # (nnz,) f32
+    long_rows: torch.Tensor       # (nlong,) i32 — rows longer than cut
+    long_chunk_ptr: torch.Tensor  # (nlong+1,) i32 — chunks of each long row
+    chunk_start: torch.Tensor     # (nchunks,) i32 — entry range of a chunk
+    chunk_end: torch.Tensor       # (nchunks,) i32
+    slots: int                    # slice slots + long-row entries
+    order: Optional[torch.Tensor] = None       # (ns,) i32 — slice rows
+    slice_rows: Optional[torch.Tensor] = None  # (nslices*32,) i32, -1 pads
+    slice_ptr: Optional[torch.Tensor] = None   # (nslices+1,) i64 — slots
+    sell_col: Optional[torch.Tensor] = None    # (slice slots,) i32
+    sell_val: Optional[torch.Tensor] = None    # (slice slots,) f32
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.numel())
+
+    @property
+    def nslices(self) -> int:
+        return 0 if self.slice_ptr is None else self.slice_ptr.numel() - 1
+
+    @property
+    def slack(self) -> float:
+        """Slots streamed per stored entry (1.0 = no padding)."""
+        return self.slots / max(self.nnz, 1)
+
+
+def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
+                     ch: int):
+    """(long_rows, long_chunk_ptr, chunk_start, chunk_end) of the rows
+    longer than `cut`, each cut into chunks of at most `ch` entries."""
+    dev = indptr.device
+    long_rows = torch.nonzero(lens > cut).flatten()
+    llens = lens[long_rows]
+    nch = (llens + ch - 1) // ch
+    zero = torch.zeros(1, dtype=INDEX_DTYPE, device=dev)
+    long_chunk_ptr = torch.cat([zero, torch.cumsum(nch, 0, dtype=INDEX_DTYPE)])
+    nchunks = int(long_chunk_ptr[-1])  # host sync: the chunk count
+    owner = torch.repeat_interleave(
+        torch.arange(long_rows.numel(), device=dev), nch.long(),
+        output_size=nchunks)
+    q = torch.arange(nchunks, dtype=torch.int64, device=dev) \
+        - long_chunk_ptr[owner].long()
+    row = long_rows[owner]
+    start = indptr[row].long() + q * ch
+    end = torch.minimum(start + ch, indptr[row + 1].long())
+    return (long_rows.to(INDEX_DTYPE), long_chunk_ptr,
+            start.to(INDEX_DTYPE), end.to(INDEX_DTYPE))
+
+
+def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
+                     data: torch.Tensor, m: int, n: int, *, cut: int = CUT,
+                     ch: int = CH, sell: bool = True) -> SpmvRoutedPlan:
+    """The serving plan of a canonical f32 CSR, on its device (see the
+    module docstring).  `sell=False` skips the slices (an SpMM-only plan,
+    cheap enough to make per call).  `cut` and `ch` set the long-row
+    threshold and chunk length (tests lower them to reach the long-row path
+    at small sizes)."""
+    check_csr(indptr, indices, data, m, "spmv_routed_plan")
+    if cut < 1 or ch < 1:
+        raise ValueError(f"spmv_routed_plan: cut and ch must be positive, "
+                         f"got {cut}, {ch}")
+    dev = data.device
+    lens = (indptr[1:] - indptr[:-1]).long()
+    long_rows, long_chunk_ptr, chunk_start, chunk_end = _long_row_chunks(
+        indptr, lens, cut, ch)
+    long_nnz = int(lens[long_rows.long()].sum())
+    plan = SpmvRoutedPlan(m, n, cut, ch, indptr, indices, data, long_rows,
+                          long_chunk_ptr, chunk_start, chunk_end,
+                          slots=long_nnz)
+    if not sell:
+        return plan
+
+    # slice rows: longest first within each window of SIGMA rows (stable,
+    # so ties keep row order)
+    short = torch.nonzero(lens <= cut).flatten()
+    key = (short // SIGMA) * (cut + 1) + (cut - lens[short])
+    order = short[torch.sort(key, stable=True).indices]
+    ns = order.numel()
+    nslices = -(-ns // SLICE)
+    pad = nslices * SLICE - ns
+    slice_rows = torch.cat([order, torch.full((pad,), -1, dtype=order.dtype,
+                                              device=dev)])
+    width = torch.cat([lens[order], torch.zeros(pad, dtype=lens.dtype,
+                                                device=dev)])
+    width = width.view(nslices, SLICE).amax(1) if nslices else width
+    slice_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                           torch.cumsum(width * SLICE, 0)])
+    nslots = int(slice_ptr[-1])  # host sync: the layout's size
+
+    # slot of every entry of a slice row: slice_ptr[s] + 32*j + lane
+    pos = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    pos[order] = torch.arange(ns, device=dev)
+    rows = prim.rows_from_indptr(indptr, data.numel()).long()
+    ent = torch.nonzero(lens[rows] <= cut).flatten()
+    er = rows[ent]
+    p = pos[er]
+    slot = (slice_ptr[p // SLICE] + (ent - indptr[er].long()) * SLICE
+            + p % SLICE)
+    sell_col = torch.zeros(nslots, dtype=INDEX_DTYPE, device=dev)
+    sell_val = torch.zeros(nslots, dtype=torch.float32, device=dev)
+    sell_col[slot] = indices[ent]
+    sell_val[slot] = data[ent]
+    return plan._replace(slots=nslots + long_nnz,
+                         order=order.to(INDEX_DTYPE),
+                         slice_rows=slice_rows.to(INDEX_DTYPE),
+                         slice_ptr=slice_ptr, sell_col=sell_col,
+                         sell_val=sell_val)
+
+
+def _long_partials(v: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
+    """Per-chunk sums of data * v[indices] over the long rows' chunks, v a
+    vector or a row-major matrix: (nchunks,) or (nchunks, k)."""
+    dev = plan.data.device
+    lens = (plan.chunk_end - plan.chunk_start).long()
+    cptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(lens, 0)])
+    total = int(cptr[-1])
+    owner = prim.rows_from_indptr(cptr, total).long()
+    e = (torch.arange(total, device=dev) - cptr[owner]
+         + plan.chunk_start[owner].long())
+    vals = plan.data[e]
+    if v.dim() == 2:
+        vals = vals[:, None]
+    return prim.segment_sum_rows(vals * v[plan.indices[e].long()], cptr)
+
+
+def spmv_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
+    """Plain PyTorch version over the plan's own layout: every slot's
+    product (dead slots add 0.0 * x[0]) summed into its slice row, and the
+    long rows from their chunks."""
+    _need_sell(plan)
+    dev = plan.data.device
+    y = torch.zeros(plan.m, dtype=torch.float32, device=dev)
+    nslots = plan.sell_val.numel()
+    if nslots:
+        per_slice = plan.slice_ptr[1:] - plan.slice_ptr[:-1]
+        sl = torch.repeat_interleave(
+            torch.arange(plan.nslices, device=dev), per_slice,
+            output_size=nslots)
+        lane = (torch.arange(nslots, device=dev) - plan.slice_ptr[sl]) % SLICE
+        row = plan.slice_rows[sl * SLICE + lane].long()
+        live = row >= 0
+        prod = plan.sell_val * x[plan.sell_col.long()]
+        y.index_add_(0, row[live], prod[live])
+    if plan.long_rows.numel():
+        y[plan.long_rows.long()] = prim.segment_sum_rows(
+            _long_partials(x, plan), plan.long_chunk_ptr)
+    return y
+
+
+def spmv_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
+    """y = A @ x, (m,) f32, for the CSR captured in `plan`."""
+    _need_sell(plan)
+    check_dense(x, 1, plan.n, plan.data.device, "spmv_routed")
+    if x.device.type == "cpu":
+        return spmv_routed_plain(x, plan)
+    y = torch.empty(plan.m, dtype=torch.float32, device=x.device)
+    if plan.m == 0:
+        return y  # a zero-size grid is a launch error
+    nchunks = plan.chunk_start.numel()
+    partial = torch.empty(max(nchunks, 1), dtype=torch.float32,
+                          device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.spmm_spmv_routed(
+            plan.slice_ptr.data_ptr(), plan.slice_rows.data_ptr(),
+            plan.sell_col.data_ptr(), plan.sell_val.data_ptr(),
+            plan.nslices, plan.indices.data_ptr(), plan.data.data_ptr(),
+            plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(), nchunks,
+            plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
+            plan.long_rows.numel(), x.data_ptr(), partial.data_ptr(),
+            y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "spmv_routed")
+    _build.LAUNCHES["spmv_routed"] += 1
+    return y
+
+
+def spmm_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
+    """Plain PyTorch version: per-row sums of data[:, None] * X[indices]."""
+    prod = plan.data[:, None] * x[plan.indices.long()]
+    return prim.segment_sum_rows(prod, plan.indptr)
+
+
+def spmm_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
+    """Y = A @ X, (m, k) f32 row-major, for a contiguous row-major X (n, k)
+    and the CSR captured in `plan` (either kind of plan)."""
+    check_dense(x, 2, plan.n, plan.data.device, "spmm_routed")
+    if x.device.type == "cpu":
+        return spmm_routed_plain(x, plan)
+    k = x.shape[1]
+    y = torch.empty((plan.m, k), dtype=torch.float32, device=x.device)
+    if plan.m == 0 or k == 0:
+        return y  # a zero-size grid is a launch error
+    nchunks = plan.chunk_start.numel()
+    partial = torch.empty((max(nchunks, 1), k), dtype=torch.float32,
+                          device=x.device)
+    order = plan.order
+    nrows = plan.m if order is None else order.numel()
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.spmm_spmm_routed(
+            plan.indptr.data_ptr(), plan.indices.data_ptr(),
+            plan.data.data_ptr(),
+            None if order is None else order.data_ptr(), nrows, plan.cut,
+            plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(), nchunks,
+            plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
+            plan.long_rows.numel(), x.data_ptr(), k, partial.data_ptr(),
+            y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "spmm_routed")
+    _build.LAUNCHES["spmm_routed"] += 1
+    return y
+
+
+def _need_sell(plan: SpmvRoutedPlan) -> None:
+    if plan.slice_ptr is None:
+        raise ValueError("spmv_routed: this plan was made with sell=False "
+                         "(SpMM only); make it with sell=True")

@@ -1,0 +1,66 @@
+"""SpMM: C = alpha * op(A) @ B (sparse @ dense matrix).
+
+Port of `spmm_tpu/ops/spmm.py`.  Paths:
+
+  * `via="csr"` (the default): `spmm_routed`'s kernel
+    (`csrc/spmm_routed.cu`, a warp per row and 32 columns of B) over a plan
+    made for this call that holds only the chunks of the long rows;
+  * `plan=("routed", p)` from `spmv_plan(a)`: the same kernel over the
+    serving plan's row order (ignored with `transa`, as in JAX);
+  * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`
+    with TF32 off;
+  * `via="bsr"` / `"bsr_pallas"`: raise NotImplementedError until the BSR
+    container is ported (ROADMAP §1.8).
+
+`transa` forms the CSR of Aᵀ by a stable sort (`CSR.transpose`), so the
+transposed product has no atomics either.  B is row-major; a non-contiguous
+tensor (such as `X.T`) is copied contiguous first.  `alpha` multiplies the
+result after the sum.  Only float32 is ported (ROADMAP §1.3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spmm_tpu_torch.ops.kernels.spmv_routed import (spmm_routed,
+                                                    spmv_routed_plan)
+from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
+from spmm_tpu_torch.ops.spmv import _check_matrix, _densify, _scale, as_dense
+
+
+def _csr_spmm(a, b: torch.Tensor) -> torch.Tensor:
+    """A @ B through `spmm_routed` on a per-call plan of long-row chunks."""
+    m, n = a.shape
+    plan = spmv_routed_plan(a.indptr, a.indices, a.data, m, n, sell=False)
+    return spmm_routed(b, plan)
+
+
+def _dense_spmm(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    with _ieee_fp32_matmul():
+        return torch.matmul(a_dense, b)
+
+
+def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
+         plan=None):
+    """C = alpha * op(A) @ B with A sparse and B dense 2-D.
+
+    `plan` may carry a routed plan from `spmv_plan(a)`, the SpMM analogue of
+    cuSPARSE's descriptor reuse."""
+    a = _check_matrix(a, "spmm")
+    b = as_dense(b, a, "spmm")
+    if b.dim() != 2:
+        raise ValueError("spmm expects a 2-D dense matrix B")
+    if transa:
+        a = a.transpose()
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"dimension mismatch: {a.shape} @ {tuple(b.shape)}")
+    if (plan is not None and isinstance(plan, tuple) and len(plan) == 2
+            and plan[0] == "routed" and not transa):
+        return _scale(spmm_routed(b, plan[1]), alpha)
+    if via == "dense":
+        return _scale(_dense_spmm(_densify(a.sum_duplicates()), b), alpha)
+    if via in ("bsr", "bsr_pallas"):
+        raise NotImplementedError(
+            f"spmm via={via!r} needs the BSR container and `tobsr`, not "
+            "ported yet (ROADMAP §1.8, containers; kernel bsr_spmm_pallas)")
+    return _scale(_csr_spmm(a.sum_duplicates(), b), alpha)

@@ -1,0 +1,181 @@
+"""SpMV: y = alpha * op(A) @ x (CSR @ dense vector).
+
+Port of `spmm_tpu/ops/spmv.py`, with its call shapes, tags and errors.  The
+kernels (all in `ops/kernels/`, each with a plain PyTorch version that a
+CPU tensor runs):
+
+  * `spmv(a, x)` and `via="csr"`: `spmv_binned` over a per-call plan of
+    row-length bins (`csrc/spmv_binned.cu`);
+  * `plan=spmv_plan(a)`: the tagged plans `("routed", p)` (the serving
+    plan, `csrc/spmv_routed.cu`), `("binned", p)` and `("onehot", p)`
+    (`csrc/spmv_onehot.cu`);
+  * `transa=True`: the CSR of Aᵀ by a stable sort (`CSR.transpose`), then
+    `spmv_binned` on it, so the transposed product has no atomics either;
+  * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`
+    with TF32 off.
+
+`alpha` multiplies the result after the sum, as in the JAX package.  Only
+float32 is ported (ROADMAP §1.3); other dtypes raise NotImplementedError.
+Every card path is deterministic, bitwise on rerun.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spmm_tpu_torch.ops.kernels.densify_onehot import densify_onehot
+from spmm_tpu_torch.ops.kernels.spmv_binned import (spmv_binned,
+                                                    spmv_binned_plan)
+from spmm_tpu_torch.ops.kernels.spmv_onehot import (spmv_onehot,
+                                                    spmv_onehot_plan)
+from spmm_tpu_torch.ops.kernels.spmv_routed import (spmv_routed,
+                                                    spmv_routed_plan)
+from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
+
+_TAGS = ("routed", "binned", "onehot")
+
+
+def _check_matrix(a, what: str):
+    """A as a CSR of float32 values."""
+    from spmm_tpu_torch.sparse.base import issparse
+
+    if not issparse(a):
+        raise TypeError(f"{what} expects a sparse matrix A")
+    a = a.tocsr()
+    if a.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} of a {a.dtype} matrix: only float32 is ported yet "
+            "(ROADMAP §1.3, dtypes)")
+    return a
+
+
+def as_dense(x, a, what: str) -> torch.Tensor:
+    """x as a float32 tensor on A's device.  A host array is converted (as
+    `jnp.asarray` does with x64 off); a tensor must already be float32 and
+    on A's device, and a non-contiguous one is copied contiguous."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{what} with a {x.dtype} operand: only float32 is ported "
+                "yet (ROADMAP §1.3, dtypes)")
+        if x.device != a.device:
+            raise ValueError(f"{what}: the dense operand is on {x.device}, "
+                             f"A on {a.device}")
+        return x.contiguous()
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=a.device)
+
+
+def _scale(y: torch.Tensor, alpha) -> torch.Tensor:
+    return y if alpha == 1 else y.mul_(alpha)
+
+
+def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    """A @ x through `spmv_binned` on a plan made for this call."""
+    m, n = a.shape
+    return spmv_binned(x, spmv_binned_plan(a.indptr, a.indices, a.data, m, n))
+
+
+def _csr_spmv_t(a, x: torch.Tensor) -> torch.Tensor:
+    """Aᵀ @ x: the CSR of Aᵀ (stable sort on column), then `_csr_spmv`."""
+    return _csr_spmv(a.transpose(), x)
+
+
+def _dense_spmv(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    with _ieee_fp32_matmul():
+        return torch.matmul(a_dense, x)
+
+
+def _densify(a) -> torch.Tensor:
+    m, n = a.shape
+    return densify_onehot(a.indptr, a.indices, a.data, m, n,
+                          with_pattern=False)[0]
+
+
+def _on_card(a) -> bool:
+    return a.device.type == "cuda"
+
+
+def spmv_onehot_plans(a):
+    """The chunk plan of `spmv_onehot` for `a`, or None where the kernel
+    does not apply: off the card, for non-f32 data, or an empty matrix."""
+    a = a.tocsr()
+    if not _on_card(a) or a.dtype != torch.float32 or a.nnz == 0:
+        return None
+    m, n = a.shape
+    return spmv_onehot_plan(a.indptr, m, n)
+
+
+def spmv_plan(a, effort: str = "auto"):
+    """Preprocess `a` for repeated SpMV, the analogue of cuSPARSE's
+    descriptor and analysis reuse.  Returns a tagged plan for
+    `spmv(..., plan=...)` and `spmm(..., plan=...)`, or None.
+
+    `effort`: "auto" and "max" give `("routed", p)`, the serving plan
+    (SELL-32-sigma slices and chunked long rows, built once on the card);
+    "fast" gives `("binned", p)`, the plan `spmv` also makes per call.  As
+    in the JAX package, the plan is None off the accelerator (here: a
+    matrix not on a CUDA device), for non-f32 data and for an empty matrix.
+    """
+    if effort not in ("auto", "max", "fast"):
+        raise ValueError(f"unknown effort {effort!r} (expected 'auto', "
+                         "'max' or 'fast')")
+    a = a.tocsr()
+    if not _on_card(a) or a.dtype != torch.float32 or a.nnz == 0:
+        return None
+    a = a.sum_duplicates()
+    m, n = a.shape
+    if effort in ("auto", "max"):
+        return ("routed", spmv_routed_plan(a.indptr, a.indices, a.data, m, n))
+    return ("binned", spmv_binned_plan(a.indptr, a.indices, a.data, m, n))
+
+
+def spmv(a, x, alpha=1.0, transa: bool = False, via: str = "auto",
+         plan=None):
+    """y = alpha * op(A) @ x.
+
+    Validation follows cusparse.spmv: A sparse (TypeError), x a 1-D dense
+    vector of the matching length (ValueError).  `via`: "auto" (the binned
+    kernel, or the kernel of `plan`), "binned", "onehot", "csr" or "dense".
+    `via="binned"`/`"onehot"` without a plan raise ValueError off the card,
+    as the JAX package does off the TPU.
+    """
+    a = _check_matrix(a, "spmv")
+    x = as_dense(x, a, "spmv")
+    if x.dim() != 1:
+        raise ValueError("spmv expects a 1-D dense vector x")
+    m, n = a.shape
+    expected = m if transa else n
+    if x.shape[0] != expected:
+        raise ValueError(
+            f"dimension mismatch: op(A) {a.shape} (transa={transa}) @ x "
+            f"{tuple(x.shape)}")
+    if via == "dense":
+        ad = _densify(a.sum_duplicates())
+        return _scale(_dense_spmv(ad.T if transa else ad, x), alpha)
+    if not transa and via in ("auto", "onehot", "binned"):
+        a = a.sum_duplicates()  # the kernels need canonical entries
+        if plan is not None and isinstance(plan, tuple) and len(plan) == 2 \
+                and plan[0] in _TAGS:
+            tag, p = plan
+        elif plan is not None:
+            tag, p = "onehot", plan  # a bare onehot plan
+        elif via in ("auto", "binned"):
+            tag, p = spmv_plan(a, effort="fast") or (None, None)
+        else:
+            tag, p = "onehot", spmv_onehot_plans(a)
+        if tag == "routed" and p is not None:
+            return _scale(spmv_routed(x, p), alpha)
+        if tag == "binned" and p is not None:
+            return _scale(spmv_binned(x, p), alpha)
+        if tag == "onehot" and p is not None:
+            return _scale(spmv_onehot(a.indptr, a.indices, a.data, x, m, n,
+                                      p), alpha)
+        if via in ("onehot", "binned"):
+            raise ValueError(f"spmv via={via!r} requested but the kernel "
+                             "does not apply (matrix not on a CUDA device, "
+                             "non-f32 data, or an empty matrix)")
+    a = a.sum_duplicates()
+    if transa:
+        return _scale(_csr_spmv_t(a, x), alpha)
+    return _scale(_csr_spmv(a, x), alpha)

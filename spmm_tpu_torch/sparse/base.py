@@ -2,7 +2,8 @@
 
 Port of the part of `spmm_tpu/sparse/base.py` that the alg1 SpGEMM slice
 needs: shape / dtype / device / nnz / density, the scipy bridge, and `@`
-routed to `spmm_tpu_torch.ops.dispatch`.  Unlike the JAX containers, these
+(`A @ B`, `A @ x`, `A @ X`, `x @ A`, `X @ A`) routed to
+`spmm_tpu_torch.ops.dispatch`.  Unlike the JAX containers, these
 hold tensors on an explicit device and are not pytrees.
 """
 
@@ -19,6 +20,9 @@ class SparseMatrix:
     """Abstract base of the port's sparse formats (CSR in this slice)."""
 
     format: str = "base"
+    # numpy defers `ndarray @ sparse` to __rmatmul__ instead of trying to
+    # wrap the matrix in an object array
+    __array_ufunc__ = None
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -58,18 +62,27 @@ class SparseMatrix:
     def __matmul__(self, other):
         from spmm_tpu_torch.ops import dispatch
 
-        if isinstance(other, numbers.Number) or (
-                isinstance(other, (torch.Tensor, np.ndarray))
-                and other.ndim == 0):
-            # scipy's spmatrix.__matmul__ rejects scalars the same way
-            raise ValueError("Scalar operands are not allowed, use '*' instead")
+        _reject_scalar(other)
         return dispatch.matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from spmm_tpu_torch.ops import dispatch
+
+        _reject_scalar(other)
+        return dispatch.rmatmul(self, other)
 
     def __repr__(self):
         m, n = self.shape
         return (f"<{m}x{n} sparse matrix of type {self.dtype} with {self.nnz} "
                 f"stored elements in {self.format.upper()} format on "
                 f"{self.device}>")
+
+
+def _reject_scalar(other) -> None:
+    if isinstance(other, numbers.Number) or (
+            isinstance(other, (torch.Tensor, np.ndarray)) and other.ndim == 0):
+        # scipy's spmatrix.__matmul__ rejects scalars the same way
+        raise ValueError("Scalar operands are not allowed, use '*' instead")
 
 
 def issparse(x) -> bool:

@@ -124,6 +124,20 @@ class CSR(SparseMatrix):
     def tocsr(self) -> "CSR":
         return self
 
+    def transpose(self) -> "CSR":
+        """Aᵀ as a CSR of shape (n, m), built by a stable sort on column
+        (deterministic on every device); canonical when A is.  The JAX
+        package's `transpose` goes through COO; the port has no CSC or COO
+        yet (ROADMAP §1.8), so it materialises the CSR directly."""
+        indptr, indices, data = prim.csr_transpose(
+            self.indptr, self.indices, self.data, self._shape)
+        m, n = self._shape
+        return CSR(indptr, indices, data, (n, m), canonical=self._canonical)
+
+    @property
+    def T(self) -> "CSR":
+        return self.transpose()
+
     def toarray(self) -> torch.Tensor:
         """Dense (m, n) tensor on the matrix's device."""
         if self._canonical:

@@ -8,7 +8,8 @@ hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The plain versions and the CPU path are held against the JAX package by
-tests/test_torch_kernels.py and tests/test_torch_spgemm.py.
+tests/test_torch_kernels.py, tests/test_torch_spgemm.py and
+tests/test_torch_spmv.py.
 """
 
 import numpy as np
@@ -147,3 +148,157 @@ def test_spgemm_fixed_on_card_pads(dev):
     assert not got.data[exact.nnz:].any()
     with pytest.raises(ValueError, match="capacity"):
         pt.spgemm_fixed(a, b, cap=exact.nnz - 1)
+
+
+# ---------------------------------------------------------------------------
+# SpMV / SpMM kernels
+# ---------------------------------------------------------------------------
+
+SPMV_EDGE = {
+    "empty": (6, 9, np.zeros(7, np.int64)),
+    "m1": (1, 45, None),
+    "full_row": (3, 5000, np.array([0, 0, 5000, 5000])),
+    "n_odd": (77, 45, None),
+    "hub_and_empty": (300, 3000, None),
+}
+
+
+def _edge_arrays(name):
+    """(indptr, indices, data) of an edge case: an empty matrix, one row,
+    a full row of n entries between empty rows, n not a multiple of 32, and
+    a few long rows among many empty ones."""
+    m, n, indptr = SPMV_EDGE[name]
+    rng = np.random.default_rng(len(name))
+    if indptr is None:
+        if name == "hub_and_empty":
+            lens = np.zeros(m, np.int64)
+            lens[[3, 100, 299]] = [n, 1500, 700]
+            lens[rng.choice(m, 40, replace=False)] += rng.integers(1, 9, 40)
+            lens = np.minimum(lens, n)
+        else:
+            lens = rng.integers(0, min(n, 30), m)
+        indptr = np.concatenate([[0], np.cumsum(lens)])
+    lens = np.diff(indptr)
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, int(ln), replace=False)) for ln in lens]
+        + [np.zeros(0, np.int64)])
+    data = rng.standard_normal(indices.size).astype(np.float32)
+    data[:3] = 0.0  # explicit stored zeros
+    return (m, n, indptr.astype(np.int32), indices.astype(np.int32), data)
+
+
+def _spmv_kernel(kernel, arrays, x):
+    """(kernel output, plain output) of one kernel on card tensors."""
+    from spmm_tpu_torch.ops.kernels import spmv_binned as kb
+    from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    m, n, indptr, indices, data = arrays
+    if kernel == "binned":
+        p = kb.spmv_binned_plan(indptr, indices, data, m, n)
+        return kb.spmv_binned(x, p), kb.spmv_binned_plain(x, p)
+    if kernel == "onehot":
+        p = ko.spmv_onehot_plan(indptr, m, n, ch=256)
+        return (ko.spmv_onehot(indptr, indices, data, x, m, n, p),
+                ko.spmv_onehot_plain(indptr, indices, data, x, m, n, p))
+    p = kr.spmv_routed_plan(indptr, indices, data, m, n, cut=32, ch=64)
+    if kernel == "routed":
+        return kr.spmv_routed(x, p), kr.spmv_routed_plain(x, p)
+    return kr.spmm_routed(x, p), kr.spmm_routed_plain(x, p)
+
+
+def _assert_rowwise(y, arrays, x, bound=1e-6):
+    """|y - y64|_i <= bound * (|A| @ |x|)_i against scipy's float64."""
+    import scipy.sparse as sp
+
+    m, n, indptr, indices, data = arrays
+    a = sp.csr_matrix((data.astype(np.float64), indices, indptr), (m, n))
+    x64 = x.cpu().double().numpy()
+    ref = a @ x64
+    rowabs = abs(a) @ np.abs(x64)
+    err = np.abs(y.cpu().double().numpy() - ref)
+    assert (err <= bound * rowabs).all(), float((err - bound * rowabs).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SPMV_EDGE))
+@pytest.mark.parametrize("kernel,k", [("binned", None), ("onehot", None),
+                                      ("routed", None), ("spmm_routed", 1),
+                                      ("spmm_routed", 45)])
+def test_spmv_kernels_vs_plain_on_card(dev, kernel, k, name):
+    m, n, *host = _edge_arrays(name)
+    arrays = (m, n, *_on(dev, *host))
+    rng = np.random.default_rng(5)
+    shape = (n,) if k is None else (n, k)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = x.to(dev)
+    key = kernel if kernel == "spmm_routed" else f"spmv_{kernel}"
+    before = _build.LAUNCHES[key]
+    got, plain = _spmv_kernel(kernel, arrays, x)
+    again, _ = _spmv_kernel(kernel, arrays, x)
+    torch.cuda.synchronize()
+    # an empty matrix gives onehot no chunks, so nothing to launch
+    launched = 0 if kernel == "onehot" and not host[1].size else 2
+    assert _build.LAUNCHES[key] == before + launched
+    assert got.shape == plain.shape and got.device == x.device
+    assert_bitwise(got, again)
+    _assert_rowwise(got, (m, n, *host), x)
+    _assert_rowwise(plain, (m, n, *host), x)
+
+
+@pytest.mark.gpu
+def test_spmv_wrappers_reject_other_devices(dev):
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    m, n, *host = _edge_arrays("n_odd")
+    indptr, indices, data = _on(dev, *host)
+    p = kr.spmv_routed_plan(indptr, indices, data, m, n)
+    with pytest.raises(ValueError, match="plan on"):
+        kr.spmv_routed(torch.ones(n), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.spmm_routed(torch.ones((4, n), device=dev).T, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call,counts", [
+    (lambda a, x, X: pt.spmv(a, x), {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x, via="csr"), {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x, plan=pt.spmv_plan(a)),
+     {"spmv_routed": 1}),
+    (lambda a, x, X: pt.spmv(a, x, plan=pt.spmv_plan(a, effort="fast")),
+     {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x, via="onehot"), {"spmv_onehot": 1}),
+    (lambda a, x, X: pt.spmv(a, x[:40], transa=True), {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x, via="dense"), {"densify_onehot": 1}),
+    (lambda a, x, X: pt.spmm(a, X), {"spmm_routed": 1}),
+    (lambda a, x, X: pt.spmm(a, X, plan=pt.spmv_plan(a)),
+     {"spmm_routed": 1}),
+    (lambda a, x, X: pt.spmm(a, X[:40], transa=True), {"spmm_routed": 1}),
+    (lambda a, x, X: a @ x, {"spmv_binned": 1}),
+    (lambda a, x, X: pt.matmul(a, X, mode="sparse"), {"spmm_routed": 1}),
+    (lambda a, x, X: x[:40] @ a, {"spmv_binned": 1}),
+    (lambda a, x, X: X[:40].T @ a, {"spmm_routed": 1}),
+])
+def test_entry_points_launch_kernels_and_rerun_bitwise(dev, call, counts):
+    a = pt.random(40, 70, 0.2, seed=11, device=dev)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(70).astype(np.float32)).to(dev)
+    X = torch.from_numpy(rng.standard_normal((70, 33)).astype(
+        np.float32)).to(dev)
+    _build.reset_launches()
+    y1 = call(a, x, X)
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    y2 = call(a, x, X)
+    torch.cuda.synchronize()
+    assert got == counts
+    assert_bitwise(y1, y2)
+    assert y1.device == x.device and bool(torch.isfinite(y1).all())
+
+
+@pytest.mark.gpu
+def test_spmv_plan_on_card(dev):
+    a = pt.random(50, 60, 0.1, seed=12, device=dev)
+    tag, p = pt.spmv_plan(a)
+    assert tag == "routed" and p.slack >= 1.0
+    assert pt.spmv_plan(a, effort="fast")[0] == "binned"
+    assert pt.spmv_plan(pt.random(5, 5, 0.0, device=dev)) is None

@@ -207,8 +207,12 @@ def test_matmul_rejects_scalars_and_dense():
     for scalar in (2.0, 3, torch.tensor(2.0), np.float32(2.0)):
         with pytest.raises(ValueError, match="Scalar"):
             a @ scalar
-    with pytest.raises(NotImplementedError, match="§1.3"):
-        a @ torch.ones(64, 3)
+    # sparse @ dense is SpMM now (tests/test_torch_spmv.py); a dense
+    # operand of more than two dimensions is still rejected
+    np.testing.assert_allclose((a @ torch.ones(64, 3)).numpy(),
+                               a.to_scipy() @ np.ones((64, 3)), rtol=1e-5)
+    with pytest.raises(ValueError, match="3-D"):
+        a @ torch.ones(64, 3, 2)
 
 
 @pytest.mark.parametrize("alg", [2, 3])
