@@ -6,8 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs four phases and prints one line of
-findings for each:
+`build/spmm_tpu_torch/`), then runs ten phases and prints findings for
+each:
 
   0. device and build: torch and CUDA versions, the card's name and power
      limit, the kernels' build time;
@@ -33,7 +33,24 @@ findings for each:
   6. their CUDA-event timings: each kernel against its plain version,
      `spmv` by plan tag, plan builds on the host clock, Gnnz/s and
      G MAC/s, the device's busy time and idle share from a profiler trace,
-     and torch's own CSR @ dense (cuSPARSE) as a comparator off the path.
+     and torch's own CSR @ dense (cuSPARSE) as a comparator off the path;
+  7. fixed-structure serving, `spgemm_plan(A, B)`, at SpGEMM 1024^2/0.1,
+     8192^2/1e-3 and an edge pair (explicit zeros, empty rows and columns)
+     plus an empty output: `expand_routed` / `compress_routed` bitwise
+     against their plain versions (the fused accumulate form included);
+     plan calls against scipy, bitwise on rerun, with fresh values on the
+     same structure, `values_accumulate`, `values_batch` (K = 8, each row
+     bitwise a single call) and launch counts; whether the plan's output
+     is bitwise `spgemm(alg=1)`'s on the card, else the largest ulp gap;
+  8. the ESC engine, `spgemm(alg=2/3, impl="esc")` with chunk fractions
+     0.2 and 0.05, at 1024^2/0.1 and 1024^2/0.5: against scipy, alg2 ==
+     alg3 bitwise, bitwise on rerun, and at 1024^2/0.1 bitwise against the
+     port's own CPU run of the same calls;
+  9. their CUDA-event timings: plan call, `values`, `values_batch` per
+     multiply, plan build (host clock), each routed kernel against its
+     plain version, `spgemm(alg=1)` and `spgemm_fixed` beside them, the
+     device's busy time and idle share; ESC alg2/alg3 times and the
+     peak-memory increase of one alg1/alg2/alg3 call.
 
 Then one JSON line of per-kernel results, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
@@ -96,13 +113,13 @@ def max_abs(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.double() - y.double()).abs().max())
 
 
-def median_ms(fn) -> float:
-    """Median over RUNS of CUDA-event time around one call of `fn`."""
+def median_ms(fn, runs: int = RUNS) -> float:
+    """Median over `runs` of CUDA-event time around one call of `fn`."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -256,7 +273,8 @@ def scipy_check(name, a, b, c) -> float:
         raise AssertionError(f"{name}: structure differs from scipy")
     ref = (a_s.astype(np.float64) @ b_s.astype(np.float64)).tocsr()
     rows = np.repeat(np.arange(c.shape[0]), np.diff(indptr))
-    want = np.asarray(ref[rows, indices.astype(np.int64)]).ravel()
+    want = (np.asarray(ref[rows, indices.astype(np.int64)]).ravel()
+            if rows.size else np.zeros(0))
     got = c.data.cpu().numpy().astype(np.float64)
     if not np.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite values")
@@ -541,7 +559,8 @@ def phase5(spmv_cells, spmm_cells, checks):
     want = {"densify_onehot": 2 * dense, "extract_roll": 0,
             "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
             "spmv_onehot": 2 * nspmv,
-            "spmm_routed": 2 * (2 * nspmm + nspmm - dense)}
+            "spmm_routed": 2 * (2 * nspmm + nspmm - dense),
+            "expand_routed": 0, "compress_routed": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes = {}
@@ -662,6 +681,279 @@ def phase6(spmv_cells, spmm_cells, smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# serving and ESC (phases 7-9)
+# --------------------------------------------------------------------------
+
+# (name, n, density, seed of A, seed of B): BASELINE.md:20 and :59 (serving),
+# :21-22 and :24-25 (ESC)
+SERVE_CELLS = [CELLS[0], CELLS[2]]
+ESC_CELLS = [CELLS[0], CELLS[1]]
+ESC_RUNS = [("alg2", 2, 0.2), ("alg3 cf=0.2", 3, 0.2),
+            ("alg3 cf=0.05", 3, 0.05)]
+BATCH_K = 8
+
+
+def ulp_gap(x: torch.Tensor, y: torch.Tensor) -> int:
+    """Largest distance in units of the last place between two float32
+    tensors of one shape (0 when bitwise equal)."""
+    if x.numel() == 0:
+        return 0
+    d = x.view(torch.int32).long() - y.view(torch.int32).long()
+    return int(d.abs().max())
+
+
+def edge_pairs(dev):
+    """(name, A, B): the edge CSR (explicit zero, empty rows) times a 45x29
+    matrix with empty rows and columns, and a pair whose product is empty
+    (A stores column 0 only, B row 5 only)."""
+    rng = np.random.default_rng(8)
+    dense = (rng.random((45, 29)) < 0.25) * rng.standard_normal((45, 29))
+    dense[[0, 3, 44]] = 0.0
+    dense[:, [1, 2, 28]] = 0.0
+    b = pt.CSR.from_scipy(sp.csr_matrix(dense.astype(np.float32)), device=dev)
+    a0 = pt.CSR.from_parts(np.arange(9, dtype=np.int32), np.zeros(8, np.int32),
+                           np.ones(8, np.float32), (8, 9), canonical=True,
+                           device=dev)
+    b0 = pt.CSR.from_parts(np.array([0] * 6 + [1] * 4, np.int32),
+                           np.array([2], np.int32), np.ones(1, np.float32),
+                           (9, 7), canonical=True, device=dev)
+    return [("edge 37x45x29", edge_csr(dev), b),
+            ("empty output 8x9x7", a0, b0)]
+
+
+def fresh(a, rng):
+    """A with the same structure and new N(0,1) values."""
+    vals = torch.from_numpy(rng.standard_normal(a.nnz).astype(np.float32))
+    return pt.CSR(a.indptr, a.indices, vals.to(a.device), a.shape,
+                  canonical=True)
+
+
+def phase7(dev):
+    """Serving plans: routed kernels against their plain versions, plan
+    calls against scipy and alg1, launch counts; returns (launches, max
+    |kernel - plain| per kernel, the plans by cell)."""
+    from spmm_tpu_torch.ops.kernels import route
+
+    err = {"expand_routed": 0.0, "compress_routed": 0.0}
+    pairs = [(name, pt.random(n, n, d, seed=sa, device=dev),
+              pt.random(n, n, d, seed=sb, device=dev))
+             for name, n, d, sa, sb in SERVE_CELLS] + edge_pairs(dev)
+    t0 = time.perf_counter()
+    plans = [pt.spgemm_plan(a, b) for _, a, b in pairs]
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2025)
+    # kernels against plain versions, bitwise
+    for (name, a, b), plan in zip(pairs, plans):
+        for vals, p in ((a.data, plan._pa), (b.data, plan._pb)):
+            for emit in (True, False):
+                got = route.densify_routed(vals, p, emit)
+                want = route.densify_routed_plain(vals, p, emit)
+                got, want = ((got, want) if emit else ((got,), (want,)))
+                if not all(same_bits(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"expand_routed != plain at {name}")
+                err["expand_routed"] = max(err["expand_routed"],
+                                           max_abs(got[0], want[0]))
+        if plan._pc is None:
+            continue
+        c = plan._product(a.data, b.data)
+        prev = torch.from_numpy(rng.standard_normal(plan.nnz).astype(
+            np.float32)).to(dev)
+        for kw in ({}, {"alpha": -1.7}, {"alpha": 0.5, "c_prev": prev,
+                                         "beta": -2.0}):
+            got = route.extract_routed(c, plan._pc, **kw)
+            want = route.extract_routed_plain(c, plan._pc, **kw)
+            if not same_bits(got, want):
+                raise AssertionError(f"compress_routed != plain at {name} "
+                                     f"{sorted(kw)}")
+            err["compress_routed"] = max(err["compress_routed"],
+                                         max_abs(got, want))
+        del c
+    torch.cuda.synchronize()
+    # the main path: plan calls, fresh values, accumulate, batch
+    _build.reset_launches()
+    outs = []
+    for (name, a, b), plan in zip(pairs, plans):
+        a2, b2 = fresh(a, rng), fresh(b, rng)
+        c1 = plan(a.data, b.data)
+        c2 = plan(a.data, b.data)
+        cf = plan(a2.data, b2.data)
+        acc = torch.zeros(plan.nnz, device=dev)
+        plan.values_accumulate(acc, a.data, b.data)
+        plan.values_accumulate(acc, a.data, b.data, alpha=-1.0, beta=1.0)
+        av = torch.stack([a.data * (i + 1) for i in range(BATCH_K)])
+        bv = torch.stack([b.data] * BATCH_K)
+        batch = plan.values_batch(av, bv, alpha=0.5)
+        outs.append((c1, c2, cf, a2, b2, acc, av, bv, batch))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    # 3 calls, 2 accumulates and K batch rows per pair; a plan with an
+    # empty output computes nothing
+    calls = (5 + BATCH_K) * sum(p.nnz > 0 for p in plans)
+    want = dict.fromkeys(launches, 0)
+    want.update(expand_routed=2 * calls, compress_routed=calls)
+    if launches != want:
+        raise AssertionError(f"serving launch counts {launches}, expected "
+                             f"{want}")
+    notes = []
+    for (name, a, b), plan, out in zip(pairs, plans, outs):
+        c1, c2, cf, a2, b2, acc, av, bv, batch = out
+        if not (same_bits(c1.data, c2.data) and c1.indptr is plan.indptr):
+            raise AssertionError(f"{name}: plan rerun not bitwise")
+        ratio = scipy_check(f"plan {name}", a, b, c1)
+        ratio_f = scipy_check(f"plan fresh {name}", a2, b2, cf)
+        if acc.any():
+            raise AssertionError(f"{name}: C + A@B - A@B is not 0")
+        for i in range(BATCH_K):
+            if not same_bits(batch[i], plan.values(av[i], bv[i], 0.5)):
+                raise AssertionError(f"{name}: values_batch row {i} != call")
+        alg1 = pt.spgemm(a, b, alg=1)
+        gap = ulp_gap(c1.data, alg1.data) if alg1.nnz == c1.nnz else None
+        notes.append(f"{name} nnz={plan.nnz} err/tol={ratio:.3g} "
+                     f"fresh={ratio_f:.3g} rerun, batch, accumulate bitwise; "
+                     f"== spgemm(alg=1): {gap == 0} (max ulp {gap})")
+        del out, alg1
+    print(f"phase 7: plans built in {build_s:.2f} s; launches {launches}; "
+          + "; ".join(notes), flush=True)
+    return launches, err, dict(zip([p[0] for p in pairs],
+                                   zip(pairs, plans)))
+
+
+def phase8(dev):
+    """ESC alg2/alg3 against scipy, each other, reruns and (at the small
+    cell) the CPU; returns the operands by cell."""
+    notes = []
+    cells = []
+    for name, n, d, sa, sb in ESC_CELLS:
+        a = pt.random(n, n, d, seed=sa, device=dev)
+        b = pt.random(n, n, d, seed=sb, device=dev)
+        P, _ = pt.spgemm_nnz_estimate(a, b)
+        ref = None
+        for what, alg, cf in ESC_RUNS:
+            c = pt.spgemm(a, b, alg=alg, chunk_fraction=cf, impl="esc")
+            again = pt.spgemm(a, b, alg=alg, chunk_fraction=cf, impl="esc")
+            torch.cuda.synchronize()
+            if not all(same_bits(x, y) for x, y in
+                       ((c.indptr, again.indptr), (c.indices, again.indices),
+                        (c.data, again.data))):
+                raise AssertionError(f"ESC {what} at {name}: rerun differs")
+            del again
+            if ref is None:
+                ratio = scipy_check(f"ESC {what} {name}", a, b, c)
+                ref = c
+            elif not all(same_bits(x, y) for x, y in
+                         ((c.indptr, ref.indptr), (c.indices, ref.indices),
+                          (c.data, ref.data))):
+                raise AssertionError(f"ESC {what} at {name} != alg2")
+            if name == ESC_CELLS[0][0] and what != ESC_RUNS[1][0]:
+                cpu = pt.spgemm(a.to("cpu"), b.to("cpu"), alg=alg,
+                                chunk_fraction=cf, impl="esc")
+                if not (same_bits(cpu.indices, c.indices.cpu())
+                        and same_bits(cpu.data, c.data.cpu())):
+                    raise AssertionError(f"ESC {what} at {name}: card != CPU")
+                what += " == CPU"
+            notes.append(f"{name} {what} nnz={c.nnz}")
+            del c
+        notes.append(f"{name} P={P} err/tol={ratio:.3g}, alg3 == alg2 and "
+                     "reruns bitwise")
+        del ref
+        cells.append((name, a, b))
+        torch.cuda.empty_cache()
+    print("phase 8: " + "; ".join(notes), flush=True)
+    return cells
+
+
+def host_syncs(fn) -> int:
+    """Synchronizing CUDA calls made by one call of `fn`: torch's sync
+    debug mode warns once for each (matched by the warning's own words, not
+    its one-time notice that the mode is a prototype)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def peak_mb(fn) -> float:
+    """Increase of the allocator's peak over what is allocated, one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase9(serving, esc_cells, smi):
+    """CUDA-event medians of serving and ESC; returns the rows."""
+    from spmm_tpu_torch.ops.kernels import route
+
+    rows = []
+    for name, _, _, _, _ in SERVE_CELLS:
+        (_, a, b), plan = serving[name]
+        cap = plan.nnz
+        c = plan._product(a.data, b.data)
+        av = torch.stack([a.data] * BATCH_K)
+        bv = torch.stack([b.data] * BATCH_K)
+        row = {
+            "cell": f"serving {name}", "nnz": cap,
+            "plan_build_host_ms": host_ms(lambda: pt.spgemm_plan(a, b)),
+            "plan_call_ms": median_ms(lambda: plan(a.data, b.data)),
+            "values_ms": median_ms(lambda: plan.values(a.data, b.data)),
+            "values_batch_per_multiply_ms": median_ms(
+                lambda: plan.values_batch(av, bv)) / BATCH_K,
+            "expand_routed_ms": median_ms(lambda: route.densify_routed(
+                a.data, plan._pa, emit_pattern=False)),
+            "expand_routed_plain_ms": median_ms(
+                lambda: route.densify_routed_plain(a.data, plan._pa,
+                                                   emit_pattern=False)),
+            "compress_routed_ms": median_ms(
+                lambda: route.extract_routed(c, plan._pc)),
+            "compress_routed_plain_ms": median_ms(
+                lambda: route.extract_routed_plain(c, plan._pc)),
+            "spgemm_alg1_ms": median_ms(lambda: pt.spgemm(a, b, alg=1)),
+            "spgemm_fixed_ms": median_ms(
+                lambda: pt.spgemm_fixed(a, b, cap=cap)),
+        }
+        row["plan_call_host_syncs"] = host_syncs(lambda: plan(a.data, b.data))
+        busy, top = device_profile(lambda: plan(a.data, b.data))
+        row["plan_call_device_busy_ms"] = busy
+        row["plan_call_idle_share"] = (None if busy is None
+                                       else 1.0 - busy / row["plan_call_ms"])
+        row["plan_call_device_top_ms"] = top
+        rows.append(row)
+        del c, av, bv
+        print(f"phase 9 [{smi}]: " + json.dumps(row), flush=True)
+    for name, a, b in esc_cells:
+        runs = RUNS if name == ESC_CELLS[0][0] else 5
+        row = {"cell": f"ESC {name}", "runs": runs,
+               "alg1_peak_mb": peak_mb(lambda: pt.spgemm(a, b, alg=1))}
+        for what, alg, cf in ESC_RUNS:
+            key = what.replace(" cf=", "_cf")
+
+            def call(alg=alg, cf=cf):
+                return pt.spgemm(a, b, alg=alg, chunk_fraction=cf,
+                                 impl="esc")
+
+            row[f"{key}_peak_mb"] = peak_mb(call)
+            row[f"{key}_ms"] = median_ms(call, runs)
+            row[f"{key}_host_syncs"] = host_syncs(call)
+        if name == ESC_CELLS[0][0]:
+            busy, top = device_profile(
+                lambda: pt.spgemm(a, b, alg=2, impl="esc"), calls=3)
+            row["alg2_device_busy_ms"] = busy
+            row["alg2_idle_share"] = (None if busy is None
+                                      else 1.0 - busy / row["alg2_ms"])
+            row["alg2_device_top_ms"] = top
+        rows.append(row)
+        torch.cuda.empty_cache()
+        print(f"phase 9 [{smi}]: " + json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -675,10 +967,16 @@ def main():
     launches5 = phase5(spmv_cells, spmm_cells, checks)
     del checks
     rows6 = phase6(spmv_cells, spmm_cells, smi)
-    # times of the new kernels at the streaming cells: SpMV 16384^2/5e-3,
-    # SpMM 10000^2/0.01
+    # times of the SpMV/SpMM kernels at the streaming cells: SpMV
+    # 16384^2/5e-3, SpMM 10000^2/0.01
     t_mv = rows6[1]
     t_mm = next(r for r in rows6 if r["cell"] == spmm_cells[0][0])
+    del spmv_cells, spmm_cells
+    torch.cuda.empty_cache()
+    launches7, err7, serving = phase7(dev)
+    esc_cells = phase8(dev)
+    rows9 = phase9(serving, esc_cells, smi)
+    t_sv = rows9[0]  # serving 1024^2/0.1
     head = rows[0]
     kernels = [
         {"name": "densify_onehot", "route": "cuda",
@@ -721,6 +1019,20 @@ def main():
          "max_abs_err": err4["spmv_onehot"],
          "ms": t_mv["spmv_onehot_ms"],
          "plain_ms": t_mv["spmv_onehot_plain_ms"]},
+        {"name": "expand_routed", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/route.cu",
+         "replaces": "spmm_tpu/ops/kernels/route.py:246",
+         "launches": launches7["expand_routed"],
+         "max_abs_err": err7["expand_routed"],
+         "ms": t_sv["expand_routed_ms"],
+         "plain_ms": t_sv["expand_routed_plain_ms"]},
+        {"name": "compress_routed", "route": "cuda",
+         "source": "spmm_tpu_torch/csrc/route.cu",
+         "replaces": "spmm_tpu/ops/kernels/route.py:318",
+         "launches": launches7["compress_routed"],
+         "max_abs_err": err7["compress_routed"],
+         "ms": t_sv["compress_routed_ms"],
+         "plain_ms": t_sv["compress_routed_plain_ms"]},
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

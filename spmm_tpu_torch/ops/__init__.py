@@ -1,10 +1,11 @@
-"""Sparse operations of the port: alg1 SpGEMM, SpMV, SpMM and `@`
-dispatch."""
+"""Sparse operations of the port: SpGEMM (alg1 and ESC alg2/alg3),
+fixed-structure serving plans, SpMV, SpMM and `@` dispatch."""
 
 from spmm_tpu_torch.ops.dispatch import (  # noqa: F401
     break_even_density,
     matmul,
 )
+from spmm_tpu_torch.ops.serving import SpgemmPlan, spgemm_plan  # noqa: F401
 from spmm_tpu_torch.ops.spgemm import (  # noqa: F401
     spgemm,
     spgemm_fixed,

@@ -1,27 +1,62 @@
 """Tensor building blocks shared by the container and the kernels.
 
-Ports the slice of `spmm_tpu/ops/_primitives.py` that the alg1 SpGEMM,
-SpMV and SpMM paths need.  Indices are int32 (`INDEX_DTYPE`), as in the
-JAX package; flat dense offsets are formed in int64, since row*k+col passes
-2^31 at large shapes.  Everything is deterministic on the CPU; on a CUDA
-tensor only `segment_sum_rows` (a plain version, never on a card path)
-adds with atomics.
+Ports `spmm_tpu/ops/_primitives.py`'s sorting, reduction and conversion
+set: the pieces the alg1 SpGEMM, SpMV, SpMM, serving and ESC paths need.
+Indices are int32 (`INDEX_DTYPE`), as in the JAX package; flat dense
+offsets are formed in int64, since row*k+col passes 2^31 at large shapes.
+Everything is deterministic on every device (stable sorts, the fixed
+doubling tree of `segsum_tree`), except `segment_sum_rows` on a CUDA
+tensor (a plain version, never on a card path), which adds with atomics.
+None of these functions reads a value back to the host: sizes that depend
+on the data are passed in by callers that have read them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 INDEX_DTYPE = torch.int32
 
 
+def _can_fuse_key(shape: Tuple[int, int]) -> bool:
+    return int(shape[0]) * int(shape[1]) < 2**31
+
+
+def f32(x) -> float:
+    """A Python scalar rounded to float32 once, so every version (kernel,
+    plain, JAX's `jnp.asarray(alpha, float32)`) multiplies by the same
+    value."""
+    return float(np.float32(x))
+
+
+def lexsort_rowcol(row: torch.Tensor, col: torch.Tensor,
+                   carried: Sequence[torch.Tensor], shape):
+    """Stable-sort COO triplets into (row, col) lexicographic order.
+
+    Returns (row_sorted, col_sorted, tuple_of_carried_sorted).  A fused
+    int32 key row*ncols + col when m*n < 2^31, else two stable passes (by
+    col, then by row; the second keeps the col order within equal rows).
+    A stable sort's permutation is unique, so both give the JAX package's
+    order exactly.  Payloads ride along by gather."""
+    if _can_fuse_key(shape):
+        key = row * int(shape[1]) + col
+        order = torch.sort(key, stable=True).indices
+    else:
+        order = torch.sort(col, stable=True).indices
+        order = order[torch.sort(row[order], stable=True).indices]
+    return row[order], col[order], tuple(c[order] for c in carried)
+
+
 def build_indptr(rows_sorted: torch.Tensor, nrows: int) -> torch.Tensor:
-    """CSR indptr from sorted row ids (the `coo2csr` direction)."""
-    counts = torch.bincount(rows_sorted.long(), minlength=nrows)
-    zero = torch.zeros(1, dtype=INDEX_DTYPE, device=rows_sorted.device)
-    return torch.cat([zero, torch.cumsum(counts, 0, dtype=INDEX_DTYPE)])
+    """CSR indptr from sorted row ids (the `coo2csr` direction).  A search
+    of the row bounds, not `bincount`, which reads its input's maximum back
+    to the host on a CUDA tensor."""
+    bounds = torch.arange(nrows + 1, dtype=rows_sorted.dtype,
+                          device=rows_sorted.device)
+    return torch.searchsorted(rows_sorted, bounds, out_int32=True)
 
 
 def rows_from_indptr(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -40,6 +75,97 @@ def is_sorted_canonical(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     row_ok = row[1:] > row[:-1]
     col_ok = (row[1:] == row[:-1]) & (col[1:] > col[:-1])
     return torch.all(row_ok | col_ok)
+
+
+def new_group(row_sorted: torch.Tensor, col_sorted: torch.Tensor
+              ) -> torch.Tensor:
+    """True where a run of equal (row, col) pairs starts."""
+    head = torch.ones(1, dtype=torch.bool, device=row_sorted.device)
+    return torch.cat([head, (row_sorted[1:] != row_sorted[:-1])
+                      | (col_sorted[1:] != col_sorted[:-1])])
+
+
+def count_unique_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor
+                        ) -> torch.Tensor:
+    """Number of distinct (row, col) pairs in lex-sorted coordinates, as a
+    0-d int64 tensor on their device."""
+    if row_sorted.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=row_sorted.device)
+    return new_group(row_sorted, col_sorted).sum()
+
+
+_SPARE = 1024  # dropped slots for the unflagged positions' stores
+
+
+def compact_positions(flags: torch.Tensor, count: int) -> torch.Tensor:
+    """Positions (int32) of the first `count` set flags, in order.  A
+    running count of the flags scatters each set position to its rank;
+    every other position stores into one of `_SPARE` slots past `count`
+    (spread, so that the stores do not queue on one address), which are
+    dropped.  No host sync (`torch.nonzero` reads its size back); slots
+    past the number of set flags hold 0."""
+    src = torch.arange(flags.numel(), dtype=INDEX_DTYPE, device=flags.device)
+    rank = torch.cumsum(flags, 0) - 1
+    rank = torch.where(flags & (rank < count), rank,
+                       (src & (_SPARE - 1)).long() + count)
+    out = torch.zeros(count + _SPARE, dtype=INDEX_DTYPE, device=flags.device)
+    return out.scatter_(0, rank, src)[:count]
+
+
+def sum_duplicates_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor,
+                          data_sorted: torch.Tensor, nout: int):
+    """Collapse equal (row, col) runs by summation; `nout` must equal
+    `count_unique_sorted(...)` (read on the host by the caller).
+
+    Each run is summed by the fixed doubling tree of `segsum_tree`, so the
+    result is bitwise the same on every device and on rerun.  The JAX
+    package sums runs in sorted order, one after another
+    (`jax.ops.segment_sum`): the bits agree for runs of one or two entries
+    and may differ in the last place for longer runs."""
+    if row_sorted.numel() == 0:
+        return row_sorted, col_sorted, data_sorted
+    heads = new_group(row_sorted, col_sorted)
+    scanned = segsum_tree(data_sorted, heads)
+    first_pos = compact_positions(heads, nout)
+    # run i ends where run i + 1 starts (nout is the number of runs)
+    end = torch.full((1,), heads.numel(), dtype=first_pos.dtype,
+                     device=first_pos.device)
+    last_pos = torch.cat([first_pos[1:], end]) - 1
+    return row_sorted[first_pos], col_sorted[first_pos], scanned[last_pos]
+
+
+def has_canonical_format_sorted(row: torch.Tensor, col: torch.Tensor
+                                ) -> torch.Tensor:
+    """True iff lex-sorted coordinates contain no duplicate (row, col)."""
+    if row.numel() <= 1:
+        return torch.ones((), dtype=torch.bool, device=row.device)
+    return ~torch.any((row[1:] == row[:-1]) & (col[1:] == col[:-1]))
+
+
+def segsum_tree(values: torch.Tensor, head_flags: torch.Tensor
+                ) -> torch.Tensor:
+    """Segmented inclusive sum via Hillis-Steele doubling, fixed order.
+
+    `head_flags[i]` is True where a segment starts; a segment's total is
+    the value at its last position.  Each step is computed from the
+    previous step's arrays (never in place), on the JAX package's exact
+    schedule, x[i] <- x[i] + x[i - d] unless a head lies in (i - d, i],
+    so the floating-point reduction tree, and with it every bit, is the
+    one `native/spgemm_cross_check.cpp` replays."""
+    n = values.numel()
+    x, stop = values, head_flags
+    d = 1
+    while d < n:
+        nx = torch.empty_like(x)
+        torch.where(stop[d:], x[d:], x[d:] + x[:-d], out=nx[d:])
+        # JAX shifts in zeros here; x + 0 only differs from x at -0.0
+        torch.where(stop[:d], x[:d], x[:d] + 0.0, out=nx[:d])
+        nstop = torch.empty_like(stop)
+        torch.bitwise_or(stop[d:], stop[:-d], out=nstop[d:])
+        nstop[:d] = True
+        x, stop = nx, nstop
+        d *= 2
+    return x
 
 
 def csr_transpose(indptr: torch.Tensor, indices: torch.Tensor,

@@ -36,11 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PTXAS_REPORT = []
 
 LAUNCHES = {"densify_onehot": 0, "extract_roll": 0, "spmv_binned": 0,
-            "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0}
+            "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0,
+            "expand_routed": 0, "compress_routed": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # indptr, indices, data, val, pat, m, k, stream
     "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _P),
@@ -63,6 +65,10 @@ _SIGNATURES = {
     # carry_first, carry_last, y, stream
     "spmm_spmv_onehot": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P),
+    # vals, pos, val, pat, nnz, stream
+    "spmm_expand_routed": (_P, _P, _P, _P, _L, _P),
+    # c, pos, prev, out, cap, alpha, beta, stream
+    "spmm_compress_routed": (_P, _P, _P, _P, _L, _F, _F, _P),
 }
 
 

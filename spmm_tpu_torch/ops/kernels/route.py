@@ -1,0 +1,219 @@
+"""Fixed-structure data movement for the serving plans.
+
+Port of `spmm_tpu/ops/kernels/route.py`: `expand_route_plan` /
+`densify_routed` (CSR values -> dense) and `compress_route_plan` /
+`extract_routed` (dense -> the values of a fixed output structure), when
+the sparsity structure is fixed and only the values change per call.
+
+The TPU plans are pairs of static lane-gather tables, because a TPU cannot
+scatter or gather across lanes.  The port's plan keeps their idea without
+the tables: each entry's flat dense position row*cols + col, computed once
+from the structure (int64) and put on the plan's device once.  On a CUDA
+tensor the wrappers launch `csrc/route.cu` (`expand_routed`,
+`compress_routed`: one thread per entry, no atomics); on a CPU tensor they
+run the plain versions beside them.  Kernel and plain version give the same
+bits: values are moved, and the one product (alpha, and beta for the
+accumulate) is rounded as in the JAX package.
+
+The TPU gates do not exist here: `m*k % 128`, the VMEM budgets of the
+resident source, and the ultra-sparse mask whose 128-entry block spans
+more than 128 source rows.  So both plans apply to every structure; only an
+empty output structure (cap == 0) has no compress plan, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from spmm_tpu_torch.ops import _primitives as prim
+from spmm_tpu_torch.ops.kernels import _build
+
+
+class ExpandPlan(NamedTuple):
+    """Static plan: CSR values -> dense (m, k) (+ bf16 pattern)."""
+    m: int
+    k: int
+    pos: torch.Tensor    # (nnz,) int64 flat positions row*k + col
+
+
+class CompressPlan(NamedTuple):
+    """Static plan: dense (m, n) -> the values of the fixed output
+    structure, plus that structure."""
+    m: int
+    n: int
+    cap: int
+    pos: torch.Tensor      # (cap,) int64 flat positions, CSR order
+    indptr: torch.Tensor   # (m+1,) int32
+    indices: torch.Tensor  # (cap,) int32
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _device_of(x, device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def expand_route_plan(indptr, indices, m: int, k: int,
+                      device=None) -> ExpandPlan:
+    """The densify plan of a CSR structure (arrays or tensors), on `device`
+    (default: the device of `indices`, else the CPU).  Always applies."""
+    ip = _host(indptr).astype(np.int64)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ip))
+    flat = rows * int(k) + _host(indices).astype(np.int64)
+    return ExpandPlan(int(m), int(k), torch.from_numpy(flat).to(
+        _device_of(indices, device)))
+
+
+def compress_plan_from_flat(flat: np.ndarray, m: int, n: int,
+                            device) -> Optional[CompressPlan]:
+    """The extraction plan of an output structure given as sorted flat
+    positions row*n + col (int64); None when it is empty."""
+    cap = int(flat.size)
+    if cap == 0:
+        return None
+    device = torch.device(device)
+    lens = np.bincount(flat // n, minlength=m)
+    indptr = np.zeros((m + 1,), np.int32)
+    np.cumsum(lens, out=indptr[1:])
+    return CompressPlan(
+        int(m), int(n), cap,
+        torch.from_numpy(flat.astype(np.int64)).to(device),
+        torch.from_numpy(indptr).to(device),
+        torch.from_numpy((flat % n).astype(np.int32)).to(device))
+
+
+def compress_route_plan(mask, n: int, device=None) -> Optional[CompressPlan]:
+    """The extraction plan of an (m, n) output mask (array or tensor), on
+    `device` (default: the mask's); None when the mask is empty."""
+    mask_h = _host(mask)
+    flat = np.flatnonzero(mask_h.ravel()).astype(np.int64)
+    return compress_plan_from_flat(flat, mask_h.shape[0], n,
+                                   _device_of(mask, device))
+
+
+def _check_vals(vals: torch.Tensor, plan: ExpandPlan) -> None:
+    if (vals.dtype != torch.float32 or vals.dim() != 1
+            or not vals.is_contiguous()):
+        raise ValueError(f"densify_routed: values must be a contiguous 1-D "
+                         f"float32 tensor, got {vals.dtype} "
+                         f"{tuple(vals.shape)}")
+    if vals.numel() != plan.pos.numel():
+        raise ValueError(f"densify_routed: {vals.numel()} values for a plan "
+                         f"of {plan.pos.numel()} entries")
+    if vals.device != plan.pos.device:
+        raise ValueError(f"densify_routed: values are on {vals.device}, the "
+                         f"plan on {plan.pos.device}")
+
+
+def _dense_out(out, shape, device) -> torch.Tensor:
+    """A zero-filled (shape) float32 tensor: `out` reused when given."""
+    if out is None:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if (out.shape != shape or out.dtype != torch.float32
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"densify_routed: out must be a contiguous float32 "
+                         f"tensor of shape {shape} on {device}")
+    return out.zero_()
+
+
+def densify_routed_plain(vals: torch.Tensor, plan: ExpandPlan,
+                         emit_pattern: bool = True, out=None):
+    """Plain PyTorch version of `expand_routed`, on any device."""
+    shape = (plan.m, plan.k)
+    dense = _dense_out(out, shape, vals.device)
+    dense.view(-1)[plan.pos] = vals
+    if not emit_pattern:
+        return dense
+    pat = torch.zeros(shape, dtype=torch.bfloat16, device=vals.device)
+    pat.view(-1)[plan.pos] = 1.0
+    return dense, pat
+
+
+def densify_routed(vals: torch.Tensor, plan: ExpandPlan,
+                   emit_pattern: bool = True, out=None):
+    """Dense (m, k) f32 from CSR values through the plan, plus (when
+    `emit_pattern`) the structural bf16 pattern.  Values are moved bitwise;
+    empty cells are +0.0.  `out`, when given, is a (m, k) f32 workspace
+    that is zero-filled and written (the serving batch reuses one)."""
+    _check_vals(vals, plan)
+    if vals.device.type == "cpu":
+        return densify_routed_plain(vals, plan, emit_pattern, out)
+    if vals.device.type != "cuda":
+        raise ValueError(f"densify_routed: unsupported device {vals.device}")
+    shape = (plan.m, plan.k)
+    dense = _dense_out(out, shape, vals.device)
+    pat = (torch.zeros(shape, dtype=torch.bfloat16, device=vals.device)
+           if emit_pattern else None)
+    if vals.numel():  # a zero-size grid is a launch error
+        lib = _build.library()
+        with torch.cuda.device(vals.device):
+            err = lib.spmm_expand_routed(
+                vals.data_ptr(), plan.pos.data_ptr(), dense.data_ptr(),
+                pat.data_ptr() if emit_pattern else None, vals.numel(),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "expand_routed")
+        _build.LAUNCHES["expand_routed"] += 1
+    return (dense, pat) if emit_pattern else dense
+
+
+def _check_compress(c, plan: CompressPlan, c_prev, out) -> None:
+    if (c.dtype != torch.float32 or c.shape != (plan.m, plan.n)
+            or not c.is_contiguous()):
+        raise ValueError(f"extract_routed: c must be a contiguous float32 "
+                         f"tensor of shape {(plan.m, plan.n)}, got {c.dtype} "
+                         f"{tuple(c.shape)}")
+    if c.device != plan.pos.device:
+        raise ValueError(f"extract_routed: c is on {c.device}, the plan on "
+                         f"{plan.pos.device}")
+    for name, t in (("c_prev", c_prev), ("out", out)):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != (plan.cap,)
+                              or not t.is_contiguous()
+                              or t.device != c.device):
+            raise ValueError(f"extract_routed: {name} must be a contiguous "
+                             f"float32 tensor of shape ({plan.cap},) on "
+                             f"{c.device}")
+
+
+def extract_routed_plain(c: torch.Tensor, plan: CompressPlan, alpha=1.0,
+                         c_prev=None, beta=1.0, out=None) -> torch.Tensor:
+    """Plain PyTorch version of `compress_routed`, on any device."""
+    v = c.view(-1)[plan.pos] * prim.f32(alpha)
+    if c_prev is not None:
+        v = torch.add(c_prev * prim.f32(beta), v)
+    if out is None:
+        return v
+    return out.copy_(v)
+
+
+def extract_routed(c: torch.Tensor, plan: CompressPlan, alpha=1.0,
+                   c_prev=None, beta=1.0, out=None) -> torch.Tensor:
+    """Values of the fixed output structure from dense `c`, in CSR order:
+    (alpha * c)[pos], or beta * c_prev + (alpha * c)[pos] when `c_prev` is
+    given, each product and the sum rounded to float32 on its own (as the
+    JAX serving program computes them).  Written into `out` when given
+    (`out` may be `c_prev`: the in-place accumulate)."""
+    _check_compress(c, plan, c_prev, out)
+    if c.device.type == "cpu":
+        return extract_routed_plain(c, plan, alpha, c_prev, beta, out)
+    if c.device.type != "cuda":
+        raise ValueError(f"extract_routed: unsupported device {c.device}")
+    if out is None:
+        out = torch.empty(plan.cap, dtype=torch.float32, device=c.device)
+    lib = _build.library()
+    with torch.cuda.device(c.device):
+        err = lib.spmm_compress_routed(
+            c.data_ptr(), plan.pos.data_ptr(),
+            c_prev.data_ptr() if c_prev is not None else None,
+            out.data_ptr(), plan.cap, prim.f32(alpha), prim.f32(beta),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "compress_routed")
+    _build.LAUNCHES["compress_routed"] += 1
+    return out

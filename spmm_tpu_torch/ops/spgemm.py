@@ -1,7 +1,8 @@
-"""SpGEMM C = alpha * A @ B, both CSR: the alg1 dense-intermediate path.
+"""SpGEMM C = alpha * A @ B, both CSR: the alg1 dense-intermediate path and
+the expand-sort-compress (ESC) alg2/alg3 engine.
 
-Port of the alg1 part of `spmm_tpu/ops/spgemm.py`, in the same order of
-operations, so the output comes out in the same form:
+Port of `spmm_tpu/ops/spgemm.py`, in the same order of operations, so the
+output comes out in the same form.  alg1:
 
   1. densify A and B into f32 values plus bf16 structural 0/1 patterns
      (kernel `densify_onehot`, `csrc/densify.cu`);
@@ -13,9 +14,18 @@ operations, so the output comes out in the same form:
      dense product into CSR in row-major order (kernel `extract_roll`,
      `csrc/extract.cu`).
 
-The GEMMs are `torch.matmul`, as the JAX package leaves them to XLA.  alg 2
-and 3 (expand-sort-compress and the blocked engines) are not ported yet.
-The JAX marker trick (`_TINY`, `_densify_marked`, `_tiny_collision`,
+ESC (alg2, and alg3 over row chunks of about `chunk_fraction` of the
+products each): expand every partial product a_ik * b_kj in A-entry then
+B-row order, stable-lexsort by (row, col), sum each run with the fixed
+doubling tree (`_primitives.segsum_tree`).  Every product is one f32
+multiply and the tree is the JAX package's, so the values are bitwise those
+of `spmm_tpu` (and of `native/spgemm_cross_check.cpp`), on every device, for
+every chunk fraction.  ESC has no Pallas kernel; it is plain PyTorch here as
+it is plain JAX there.  The blocked dense alg2/alg3 engines
+(`spmm_tpu/ops/spgemm_blocked.py`) are not ported yet (ROADMAP §1.6).
+
+The GEMMs are `torch.matmul`, as the JAX package leaves them to XLA.  The
+JAX marker trick (`_TINY`, `_densify_marked`, `_tiny_collision`,
 `densify_split_plan`) and the Pallas plans (`alg1_onehot_plans`) are TPU
 workarounds: the CUDA densify writes the pattern from the structure itself.
 """
@@ -123,14 +133,266 @@ def _check_operands(a, b) -> None:
             "(ROADMAP §1.2, dtypes)")
 
 
-def spgemm(a, b, alpha=1.0, alg: int = 0, precision: str = "highest"):
+# ===========================================================================
+# ALG2 — expand-sort-compress with exact two-phase sizing
+# ===========================================================================
+
+
+def _check_products(P: int, what: str) -> None:
+    """The product workspace is indexed with int32, as in JAX, whose int32
+    `ends` wraps past 2^31 products; here the count is int64 and the
+    workspace refuses instead."""
+    if P >= 2**31:
+        raise ValueError(
+            f"spgemm ESC: {what} holds {P} intermediate products, past the "
+            "2^31 an int32-indexed workspace holds; use alg=3 with a "
+            "chunk_fraction that keeps each chunk below 2^31")
+
+
+def _work_estimation(a_indices, b_indptr):
+    """Per-A-entry product counts and their inclusive prefix, both int64
+    (symbolic phase; the analogue of `spGEMM_workEstimation`)."""
+    ai = a_indices.long()
+    counts = (b_indptr[ai + 1] - b_indptr[ai]).long()
+    return counts, torch.cumsum(counts, 0)
+
+
+def _expand_slots(a_indices, b_indptr, counts, ends, P: int):
+    """(A entry, B position) of each of the P product slots, int32, in
+    A-entry then B-row order."""
+    dev = a_indices.device
+    eid = torch.repeat_interleave(
+        torch.arange(a_indices.numel(), dtype=INDEX_DTYPE, device=dev),
+        counts, output_size=P)
+    heads = (ends - counts).to(INDEX_DTYPE)
+    within = torch.arange(P, dtype=INDEX_DTYPE, device=dev) - heads[eid]
+    return eid, b_indptr[a_indices.long()][eid] + within
+
+
+def _expand(a_rows, a_indices, a_data, b_indptr, b_indices, b_data,
+            counts, ends, P: int):
+    """Materialise all P partial products as (row, col, val) triplets.
+
+    Expansion order is A-entry order then B-row order, fixed, so the
+    downstream stable sort gives a deterministic duplicate order.  The JAX
+    version rebuilds the per-entry quantities with delta scatters and a
+    cumsum because TPU gathers serialise; the card gathers directly."""
+    eid, b_pos = _expand_slots(a_indices, b_indptr, counts, ends, P)
+    return a_rows[eid], b_indices[b_pos], a_data[eid] * b_data[b_pos]
+
+
+def _expand_joined(a_rows, a_indices, a_data, b_indptr, b_indices, b_data,
+                   counts, ends, P: int, k: int):
+    """The same P triplets in B-position order (a stable sort of the slots
+    by B position), as JAX's gather-free sort-join expansion returns them.
+    For equal (row, col) both orders run over ascending k, so the
+    downstream lexsort and tree give `_expand`'s bits.  `k` is kept for
+    signature parity; the JAX version sizes a column count with it."""
+    del k
+    eid, b_pos = _expand_slots(a_indices, b_indptr, counts, ends, P)
+    order = torch.sort(b_pos, stable=True).indices
+    eid, b_pos = eid[order], b_pos[order]
+    return a_rows[eid], b_indices[b_pos], a_data[eid] * b_data[b_pos]
+
+
+def _compress(row_s, col_s, val_s, alpha, nnz_c: int, m: int):
+    """Sum duplicate (row, col) runs with the fixed doubling tree; CSR
+    (indptr, col, alpha * sums)."""
+    out_row, out_col, out_val = _chunk_extract(row_s, col_s, val_s, alpha,
+                                               nnz_c)
+    return prim.build_indptr(out_row, m), out_col, out_val
+
+
+def _esc_expand_sort_count(a_rows, a_indices, a_data,
+                           b_indptr, b_indices, b_data,
+                           counts, ends, P: int, m: int, n: int,
+                           k: int = 0, joined: bool = False):
+    """ESC numeric front half: expand all P partial products, stable-lexsort
+    by (row, col), count distinct pairs (a 0-d tensor; no host sync)."""
+    if joined:
+        row, col, val = _expand_joined(a_rows, a_indices, a_data, b_indptr,
+                                       b_indices, b_data, counts, ends, P, k)
+    else:
+        row, col, val = _expand(a_rows, a_indices, a_data, b_indptr,
+                                b_indices, b_data, counts, ends, P)
+    row_s, col_s, (val_s,) = prim.lexsort_rowcol(row, col, (val,), (m, n))
+    return row_s, col_s, val_s, prim.count_unique_sorted(row_s, col_s)
+
+
+def _empty_csr(m: int, n: int, dtype, device):
+    from spmm_tpu_torch.sparse.csr import CSR
+
+    return CSR(torch.zeros(m + 1, dtype=INDEX_DTYPE, device=device),
+               torch.zeros(0, dtype=INDEX_DTYPE, device=device),
+               torch.zeros(0, dtype=dtype, device=device), (m, n),
+               canonical=True)
+
+
+def _spgemm_alg2_esc(a, b, alpha, joined: bool = False):
+    from spmm_tpu_torch.sparse.csr import CSR
+
+    m, k = a.shape
+    n = b.shape[1]
+    if a.nnz == 0 or b.nnz == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    counts, ends = _work_estimation(a.indices, b.indptr)
+    P = int(ends[-1])  # host sync: sizing readback (workEstimation)
+    if P == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    _check_products(P, "alg=2")
+    row_s, col_s, val_s, nnz_dev = _esc_expand_sort_count(
+        a.rows, a.indices, a.data, b.indptr, b.indices, b.data,
+        counts, ends, P, m, n, k, joined)
+    nnz_c = int(nnz_dev)  # host sync (spMatGetSize)
+    indptr, out_col, out_val = _compress(row_s, col_s, val_s, alpha, nnz_c,
+                                         m)
+    return CSR(indptr, out_col, out_val, (m, n), canonical=True)
+
+
+# ===========================================================================
+# ALG3 — chunked ESC (bounded workspace)
+# ===========================================================================
+
+
+def _chunk_esc(a_indices, a_data, a_rows, b_indptr, b_indices, b_data,
+               e0: int, e1: int, pw: int, m: int, n: int):
+    """One ESC pass over the A entries [e0, e1) of a row chunk, whose pw
+    products are known on the host: the sorted triplets and the chunk's
+    distinct count (0-d).  The JAX version pads every chunk to the widest
+    one (W products, sentinel rows) because XLA shapes are static; here
+    each chunk holds only its own triplets."""
+    counts, ends = _work_estimation(a_indices[e0:e1], b_indptr)
+    row, col, val = _expand(a_rows[e0:e1], a_indices[e0:e1], a_data[e0:e1],
+                            b_indptr, b_indices, b_data, counts, ends, pw)
+    row_s, col_s, (val_s,) = prim.lexsort_rowcol(row, col, (val,), (m, n))
+    return row_s, col_s, val_s, prim.count_unique_sorted(row_s, col_s)
+
+
+def _chunk_extract(row_s, col_s, val_s, alpha, nnz_c: int):
+    """(row, col, alpha * sum) of each of the nnz_c runs of sorted
+    triplets, each run summed with the fixed doubling tree."""
+    r, c, v = prim.sum_duplicates_sorted(row_s, col_s, val_s, nnz_c)
+    return r, c, v * prim.f32(alpha)
+
+
+def _alg3_esc_count(a, b, chunk_meta, m: int, n: int) -> torch.Tensor:
+    """Sizing sweep: one ESC chunk live at a time; per-chunk distinct
+    counts stay on the device for one readback (the workEstimation
+    sweep)."""
+    counts = torch.zeros(len(chunk_meta), dtype=torch.int64,
+                         device=a.device)
+    a_rows = a.rows
+    for i, (_, _, e0, e1, pw) in enumerate(chunk_meta):
+        if pw:
+            *_, nnz_c = _chunk_esc(a.indices, a.data, a_rows, b.indptr,
+                                   b.indices, b.data, e0, e1, pw, m, n)
+            counts[i] = nnz_c
+    return counts
+
+
+def _alg3_esc_compute(a, b, chunk_meta, counts_h, alpha, m: int, n: int,
+                      total: int):
+    """Numeric sweep: recompute each chunk (cuSPARSE's staged pipeline also
+    runs estimate + compute) and write its compacted output at its exact
+    offset; the workspace stays one chunk + the output buffers."""
+    row = torch.empty(total, dtype=INDEX_DTYPE, device=a.device)
+    col = torch.empty(total, dtype=INDEX_DTYPE, device=a.device)
+    val = torch.empty(total, dtype=a.dtype, device=a.device)
+    a_rows = a.rows
+    off = 0
+    for (_, _, e0, e1, pw), cnt in zip(chunk_meta, counts_h.tolist()):
+        if not cnt:
+            continue
+        row_s, col_s, val_s, _ = _chunk_esc(
+            a.indices, a.data, a_rows, b.indptr, b.indices, b.data,
+            e0, e1, pw, m, n)
+        r, c, v = _chunk_extract(row_s, col_s, val_s, alpha, cnt)
+        row[off:off + cnt], col[off:off + cnt], val[off:off + cnt] = r, c, v
+        off += cnt
+    return prim.build_indptr(row, m), col, val
+
+
+def _spgemm_alg3_esc(a, b, alpha, chunk_fraction: float,
+                     verbose: bool = False):
+    from spmm_tpu_torch.sparse.csr import CSR
+
+    m = a.shape[0]
+    n = b.shape[1]
+    if a.nnz == 0 or b.nnz == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    _, ends = _work_estimation(a.indices, b.indptr)
+    # one host read of indptr and the products through each row (whose
+    # last entry is P): the sizing readback
+    ip = a.indptr[1:].long()
+    row_prod = torch.where(ip > 0, ends[(ip - 1).clamp(min=0)], 0)
+    indptr_h, row_prod_cum = torch.stack([ip, row_prod]).cpu().numpy()
+    indptr_h = np.concatenate([[0], indptr_h])
+    P = int(row_prod_cum[-1])
+    if P == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    chunk_fraction = min(max(float(chunk_fraction), 1e-3), 1.0)
+    target = max(1, int(np.ceil(P * chunk_fraction)))
+    # row boundaries balancing products per chunk (host, numpy)
+    bounds = [0]
+    while bounds[-1] < m:
+        tgt = (row_prod_cum[bounds[-1] - 1] if bounds[-1] else 0) + target
+        nxt = int(np.searchsorted(row_prod_cum, tgt, side="left")) + 1
+        bounds.append(min(max(nxt, bounds[-1] + 1), m))
+    chunk_meta = []
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        e0, e1 = int(indptr_h[r0]), int(indptr_h[r1])
+        pw = int((row_prod_cum[r1 - 1] if r1 > 0 else 0)
+                 - (row_prod_cum[r0 - 1] if r0 > 0 else 0))
+        chunk_meta.append((r0, r1, e0, e1, pw))
+    E = max(max(c[3] - c[2] for c in chunk_meta), 1)
+    W = max(max(c[4] for c in chunk_meta), 1)
+    _check_products(W, "an alg=3 chunk")
+    if verbose:
+        print(f"[spgemm alg3] P={P} chunks={len(chunk_meta)} "
+              f"E={E} W={W} chunk_fraction={chunk_fraction}")
+    counts_c = _alg3_esc_count(a, b, chunk_meta, m, n)
+    counts_h = counts_c.cpu().numpy()  # ONE sizing readback for all chunks
+    total = int(counts_h.sum())
+    if total == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    indptr, col, val = _alg3_esc_compute(a, b, chunk_meta, counts_h, alpha,
+                                         m, n, total)
+    return CSR(indptr, col, val, (m, n), canonical=True)
+
+
+# ===========================================================================
+# public entry
+# ===========================================================================
+
+
+def _blocked_feasible(a, b) -> bool:
+    """Dense-tile strategies apply when A/B dense panels fit the budget
+    (the same regime class as alg1's intermediates)."""
+    m, k = a.shape
+    n = b.shape[1]
+    return (4 * (m * k + k * n) <= _DENSE_BUDGET_BYTES
+            and (m + 256) * (n + 256) < 2**31)
+
+
+def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
+           verbose: bool = False, precision: str = "highest",
+           impl: str = "auto"):
     """C = alpha * A @ B, both CSR, as a canonical CSR on the operands'
-    device.  `alg` follows the modified `cupyx.cusparse.spgemm`: 1 is the
-    dense-intermediate path; 0 takes it when the dense temporaries fit
-    `_DENSE_BUDGET_BYTES`."""
+    device.  API of the modified `cupyx.cusparse.spgemm` (cusparse.py:2007):
+    alg 1 is the dense-intermediate path; 0 takes it when the dense
+    temporaries fit `_DENSE_BUDGET_BYTES`, else alg 2; `chunk_fraction`
+    applies to alg 3.
+
+    `impl` selects the alg2/alg3 engine as in the JAX package: "esc" runs
+    expand-sort-compress; "dense" and, where A/B dense panels fit the
+    budget, "auto" select the blocked dense engines, which are not ported
+    yet and raise `NotImplementedError` (ROADMAP §1.6); "auto" runs ESC
+    elsewhere."""
     _check_operands(a, b)
     if alg not in (0, 1, 2, 3):
         raise ValueError(f"unknown alg {alg!r} (expected 0, 1, 2 or 3)")
+    if impl not in ("auto", "dense", "esc"):
+        raise ValueError(f"unknown impl {impl!r}")
     _check_precision(precision)
     a = a.sum_duplicates()
     b = b.sum_duplicates()
@@ -139,11 +401,22 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, precision: str = "highest"):
         n = b.shape[1]
         dense_bytes = 4 * (m * k + k * n + 2 * m * n)
         if alg == 1 or dense_bytes <= _DENSE_BUDGET_BYTES:
+            if verbose:
+                print(f"[spgemm] alg1 dense-intermediate ({dense_bytes} B)")
             return _spgemm_alg1(a, b, alpha, precision)
-    raise NotImplementedError(
-        f"spgemm alg={alg} (or alg=0 past the {_DENSE_BUDGET_BYTES}-byte "
-        "dense budget) needs the ESC and blocked engines, not ported yet "
-        "(ROADMAP §1.5 ESC alg2/alg3, §1.6 blocked engines)")
+        if verbose:
+            print("[spgemm] auto: dense footprint too large → alg2")
+        alg = 2
+    use_blocked = (impl == "dense"
+                   or (impl == "auto" and _blocked_feasible(a, b)))
+    if use_blocked and a.nnz and b.nnz:
+        raise NotImplementedError(
+            f"spgemm alg={alg} impl={impl!r} selects the blocked dense "
+            "engine (A and B dense panels fit the budget), not ported yet "
+            "(ROADMAP §1.6); impl='esc' runs the ESC engine")
+    if alg == 2:
+        return _spgemm_alg2_esc(a, b, alpha)
+    return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)
 
 
 def spgemm_fixed(a, b, alpha=1.0, cap: Optional[int] = None,

@@ -1,9 +1,10 @@
 """CSR (compressed sparse row) matrix on an explicit torch device.
 
-Port of the alg1-slice part of `spmm_tpu/sparse/csr.py`: int32 `indptr` and
-`indices`, a `data` tensor (float32 on the SpGEMM path), the static shape and
-a canonical flag (sorted, duplicate-free indices), all three tensors on one
-device.
+Port of the part of `spmm_tpu/sparse/csr.py` the ported paths need: int32
+`indptr` and `indices`, a `data` tensor (float32 on the SpGEMM path), the
+static shape and a canonical flag (sorted, duplicate-free indices), all
+three tensors on one device; `sort_indices` and `sum_duplicates` for input
+in any order.
 """
 
 from __future__ import annotations
@@ -107,19 +108,34 @@ class CSR(SparseMatrix):
         duplicate-free."""
         return bool(prim.is_sorted_canonical(self.rows, self.indices))
 
+    def sort_indices(self) -> "CSR":
+        """A CSR with each row's column indices sorted (the `csrsort`
+        analogue); duplicates stay, in their stored order."""
+        _, col_s, (data_s,) = prim.lexsort_rowcol(
+            self.rows, self.indices, (self.data,), self._shape)
+        return CSR(self.indptr, col_s, data_s, self._shape,
+                   canonical=self._canonical)
+
+    def sorted_indices(self) -> "CSR":
+        return self.sort_indices()
+
     def sum_duplicates(self) -> "CSR":
-        """Canonical form: this matrix, flagged canonical, when its indices
-        are already sorted and unique.  Sorting and summing duplicates needs
-        the bitwise `segsum_tree` of the ESC slice and is not ported yet."""
+        """Canonical form: sorted indices, duplicates summed.
+
+        The JAX package goes through COO (`tocoo().tocsr()`); here the same
+        composition is a stable lexsort, one host read of the distinct
+        count (as in JAX), `sum_duplicates_sorted` (each run summed by the
+        fixed doubling tree) and `build_indptr`."""
         if self._canonical:
             return self
-        if self.check_canonical():
-            return CSR(self.indptr, self.indices, self.data, self._shape,
-                       canonical=True)
-        raise NotImplementedError(
-            "sum_duplicates on unsorted or duplicate indices is not ported "
-            "yet (ROADMAP §1.5, primitives: lexsort_rowcol, "
-            "sum_duplicates_sorted, segsum_tree)")
+        row_s, col_s, (data_s,) = prim.lexsort_rowcol(
+            self.rows, self.indices, (self.data,), self._shape)
+        nout = int(prim.count_unique_sorted(row_s, col_s))  # host sync
+        if nout != self.nnz:
+            row_s, col_s, data_s = prim.sum_duplicates_sorted(
+                row_s, col_s, data_s, nout)
+        return CSR(prim.build_indptr(row_s, self._shape[0]), col_s, data_s,
+                   self._shape, canonical=True)
 
     def tocsr(self) -> "CSR":
         return self

@@ -302,3 +302,181 @@ def test_spmv_plan_on_card(dev):
     assert tag == "routed" and p.slack >= 1.0
     assert pt.spmv_plan(a, effort="fast")[0] == "binned"
     assert pt.spmv_plan(pt.random(5, 5, 0.0, device=dev)) is None
+
+
+# ---------------------------------------------------------------------------
+# serving: expand_routed / compress_routed, SpgemmPlan; ESC on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,density,kw", [
+    (64, 128, 0.1, {}),
+    (33, 45, 0.3, {"zeros": 3, "empty_rows": (0, 7, 32)}),
+    (1, 5000, 0.2, {}),       # one row
+    (3000, 7, 0.5, {}),       # m*k not a multiple of 128
+])
+@pytest.mark.parametrize("emit_pattern", [True, False])
+def test_expand_routed_kernel_bitwise_vs_plain(dev, m, k, density, kw,
+                                               emit_pattern):
+    from spmm_tpu_torch.ops.kernels import route
+
+    indptr, indices, data = csr_arrays(m, k, density, seed=m + k, **kw)
+    data[1::7] = -0.0  # bits travel, sign of zero included
+    plan = route.expand_route_plan(indptr, indices, m, k, dev)
+    vals = torch.from_numpy(data).to(dev)
+    before = _build.LAUNCHES["expand_routed"]
+    got = route.densify_routed(vals, plan, emit_pattern)
+    assert _build.LAUNCHES["expand_routed"] == before + 1
+    want = route.densify_routed_plain(vals, plan, emit_pattern)
+    ws = torch.full((m, k), 3.0, device=dev)
+    reused = route.densify_routed(vals, plan, emit_pattern, out=ws)
+    torch.cuda.synchronize()
+    got, want, reused = ((x,) if not emit_pattern else x
+                         for x in (got, want, reused))
+    for x, y, z in zip(got, want, reused):
+        assert_bitwise(x, y)
+        assert_bitwise(z, y)
+
+
+@pytest.mark.gpu
+def test_expand_routed_empty_launches_nothing(dev):
+    from spmm_tpu_torch.ops.kernels import route
+
+    indptr, indices, data = csr_arrays(6, 9, 0.0, seed=1)
+    plan = route.expand_route_plan(indptr, indices, 6, 9, dev)
+    before = dict(_build.LAUNCHES)
+    val, pat = route.densify_routed(torch.from_numpy(data).to(dev), plan)
+    assert _build.LAUNCHES == before
+    assert not val.any() and not pat.any() and val.shape == (6, 9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,g", [(64, 256, 33), (1, 1000, 400),
+                                   (500, 7, 3400), (128, 128, 0)])
+@pytest.mark.parametrize("alpha,beta", [(1.0, None), (-1.7, None),
+                                        (0.5, -2.0), (3.0, 1.0)])
+def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta):
+    """Including the fused beta*prev + alpha*c[pos] (no FMA contraction)
+    written in place into prev."""
+    from spmm_tpu_torch.ops.kernels import route
+
+    c, mask, nnz = masked_dense(m, n, g, seed=g + 3)
+    plan = route.compress_route_plan(mask, n, dev)
+    c = torch.from_numpy(c).to(dev)
+    kw = {}
+    if beta is not None:
+        prev = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            nnz).astype(np.float32)).to(dev)
+        kw = {"c_prev": prev, "beta": beta}
+    want = route.extract_routed_plain(c, plan, alpha, **kw)
+    before = _build.LAUNCHES["compress_routed"]
+    got = route.extract_routed(c, plan, alpha, **kw)
+    assert _build.LAUNCHES["compress_routed"] == before + 1
+    assert_bitwise(got, want)
+    if beta is not None:
+        inplace = route.extract_routed(c, plan, alpha, out=kw["c_prev"], **kw)
+        torch.cuda.synchronize()
+        assert inplace is kw["c_prev"]
+        assert_bitwise(inplace, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,density", [(40, 72, 56, 0.2),
+                                           (256, 256, 256, 0.1)])
+def test_spgemm_plan_on_card(dev, m, k, n, density):
+    a = pt.random(m, k, density, seed=5)
+    b = pt.random(k, n, density, seed=6)
+    want = pt.spgemm_plan(a, b)(a.data, b.data)  # CPU: plain versions
+    ad, bd = a.to(dev), b.to(dev)
+    plan = pt.spgemm_plan(ad, bd)
+    assert plan.routed == (True, True, True)
+    _build.reset_launches()
+    got = plan(ad.data, bd.data)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "expand_routed": 2, "compress_routed": 1}
+    again = plan(ad.data, bd.data)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.has_canonical_format
+    assert_bitwise(got.indptr, want.indptr)
+    assert_bitwise(got.indices, want.indices)
+    w = want.data.numpy()
+    np.testing.assert_allclose(got.data.cpu().numpy(), w, rtol=1e-6,
+                               atol=1e-6 * np.abs(w).max())
+    assert_bitwise(again.data, got.data)
+    K = 3
+    av = torch.stack([ad.data * (i + 1) for i in range(K)])
+    bv = torch.stack([bd.data] * K)
+    batch = plan.values_batch(av, bv, alpha=0.5)
+    for i in range(K):
+        assert_bitwise(batch[i], plan.values(av[i], bv[i], alpha=0.5))
+    c = got.data.clone()
+    assert plan.values_accumulate(c, ad.data, bd.data, -1.0, 1.0) is c
+    assert not c.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg,cf", [(2, 0.2), (3, 1.0), (3, 0.2), (3, 0.05)])
+def test_esc_on_card_bitwise_vs_cpu(dev, alg, cf):
+    a = pt.random(300, 200, 0.05, seed=7)
+    b = pt.random(200, 250, 0.05, seed=8)
+    want = pt.spgemm(a, b, alpha=1.5, alg=alg, chunk_fraction=cf, impl="esc")
+    got = pt.spgemm(a.to(dev), b.to(dev), alpha=1.5, alg=alg,
+                    chunk_fraction=cf, impl="esc")
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.has_canonical_format
+    for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
+                 (got.data, want.data)):
+        assert_bitwise(x, y)
+
+
+@pytest.mark.gpu
+def test_sum_duplicates_on_card_bitwise_vs_cpu(dev):
+    from torch_port_helpers import unsorted_csr_arrays
+
+    arrays = unsorted_csr_arrays(120, 90, 0.1, 9, max_run=4)
+    want = pt.CSR.from_parts(*arrays, (120, 90)).sum_duplicates()
+    got = pt.CSR.from_parts(*arrays, (120, 90), device=dev).sum_duplicates()
+    assert got.has_canonical_format
+    for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
+                 (got.data, want.data)):
+        assert_bitwise(x, y)
+
+
+def _host_syncs(fn) -> int:
+    """How many synchronizing CUDA calls `fn` makes: torch's sync debug
+    mode warns once for each (its one-time notice that the mode is a
+    prototype also says "synchronizing", so match the warning's own
+    words)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+@pytest.mark.gpu
+def test_host_syncs_on_card(dev):
+    """A plan call syncs never; ESC alg2 and alg3 read back twice each
+    (alg2: P and nnz; alg3: the row products and the chunk counts), as
+    the JAX package does; `sum_duplicates` once."""
+    from torch_port_helpers import unsorted_csr_arrays
+
+    a = pt.random(200, 150, 0.05, seed=1, device=dev)
+    b = pt.random(150, 180, 0.05, seed=2, device=dev)
+    plan = pt.spgemm_plan(a, b)
+    plan(a.data, b.data)
+    assert _host_syncs(lambda: plan(a.data, b.data)) == 0
+    assert _host_syncs(lambda: plan.values_accumulate(
+        plan.values(a.data, b.data), a.data, b.data)) == 0
+    assert _host_syncs(lambda: pt.spgemm(a, b, alg=2, impl="esc")) == 2
+    assert _host_syncs(lambda: pt.spgemm(a, b, alg=3, chunk_fraction=0.1,
+                                         impl="esc")) == 2
+    u = pt.CSR.from_parts(*unsorted_csr_arrays(50, 40, 0.2, 3), (50, 40),
+                          device=dev)
+    assert _host_syncs(u.sum_duplicates) == 1

@@ -223,10 +223,20 @@ def test_unported_algs_raise(alg):
 
 
 def test_alg0_past_budget_raises(monkeypatch):
-    _, a, _, b = _operands(*SPGEMM_CASES["square"])
-    monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 1000)
+    # past the dense budget alg 0 goes to alg 2, as in JAX: the blocked
+    # engine where A and B panels still fit (not ported: it raises), ESC
+    # where they do not
+    a_ref, a, b_ref, b = _operands(*SPGEMM_CASES["square"])
+    monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 40000)
     with pytest.raises(NotImplementedError, match="ESC"):
         pt.spgemm(a, b, alg=0)
+    monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 1000)
+    monkeypatch.setattr(jax_sg, "_DENSE_BUDGET_BYTES", 1000)
+    got = pt.spgemm(a, b, alg=0)
+    want = st.spgemm(a_ref, b_ref, alg=0)
+    for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
+                 (got.data, want.data)):
+        assert_bitwise(x, np.asarray(y))
     assert pt.spgemm(a, b, alg=1).nnz > 0
 
 
@@ -259,12 +269,17 @@ def test_non_canonical_input_raises():
     assert not a.check_canonical()
     a_ref = st.CSR.from_parts(indptr, indices, data, (2, 4))
     assert_bitwise(a.toarray(), np.asarray(a_ref.toarray()))
-    with pytest.raises(NotImplementedError, match="§1.5"):
-        a.sum_duplicates()
-    with pytest.raises(NotImplementedError, match="§1.5"):
-        pt.spgemm(a, b)
-    with pytest.raises(NotImplementedError, match="§1.5"):
-        a @ b
+    # canonicalised now, as in JAX (tests/test_torch_esc.py covers
+    # duplicates and the ESC primitives)
+    fixed = a.sum_duplicates()
+    assert fixed.has_canonical_format and fixed.check_canonical()
+    assert fixed.indices.tolist() == [1, 3, 0]
+    assert_bitwise(fixed.toarray(), a.toarray())
+    b_ref = st.CSR.from_parts(b.indptr.numpy(), b.indices.numpy(),
+                              b.data.numpy(), (4, 3), canonical=True)
+    want = st.spgemm(a_ref, b_ref, alg=1)
+    assert_csr_match(pt.spgemm(a, b), want)
+    assert_csr_match(a @ b, want)
 
 
 @pytest.mark.parametrize("indptr,indices", [

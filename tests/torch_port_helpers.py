@@ -27,6 +27,22 @@ def csr_arrays(m, n, density, seed, zeros=0, empty_rows=()):
     return indptr, (flat % n).astype(np.int32), data
 
 
+def unsorted_csr_arrays(m, n, density, seed, max_run=2):
+    """CSR (indptr, indices, data) in no column order and with duplicates:
+    int(density*m*n) distinct positions, each stored 1..max_run times,
+    shuffled within its row; U[0,1) float32 values.  m*n may pass 2^31."""
+    rng = np.random.default_rng(seed)
+    flat = rng.choice(m * n, size=int(density * m * n), replace=False)
+    flat = np.repeat(flat.astype(np.int64),
+                     rng.integers(1, max_run + 1, flat.size))
+    rng.shuffle(flat)
+    flat = flat[np.argsort(flat // n, kind="stable")]
+    counts = np.bincount(flat // n, minlength=m)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    data = rng.random(flat.size, dtype=np.float32)
+    return indptr, (flat % n).astype(np.int32), data
+
+
 def masked_dense(m, n, g, seed):
     """(c, mask, kept count): a float32 (m, n) product with `g` holes, as
     in tests/test_extract_roll.py."""
@@ -47,6 +63,25 @@ def pair(m, n, density, seed, **kw):
     indptr, indices, data = csr_arrays(m, n, density, seed, **kw)
     ref = st.CSR.from_parts(indptr, indices, data, (m, n), canonical=True)
     return ref, from_reference(ref)
+
+
+def unsorted_pair(m, n, density, seed, **kw):
+    """`unsorted_csr_arrays` as an unflagged `spmm_tpu.CSR` and as the
+    port's CSR."""
+    import spmm_tpu as st
+    import spmm_tpu_torch as pt
+
+    arrays = unsorted_csr_arrays(m, n, density, seed, **kw)
+    return (st.CSR.from_parts(*arrays, (m, n)),
+            pt.CSR.from_parts(*arrays, (m, n)))
+
+
+def assert_csr_bitwise(got, want):
+    """Shape, indptr, indices and data bit for bit."""
+    assert tuple(got.shape) == tuple(want.shape)
+    for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
+                 (got.data, want.data)):
+        assert_bitwise(x, y)
 
 
 def as_bits(x):
