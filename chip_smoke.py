@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs ten phases and prints findings for
+`build/spmm_tpu_torch/`), then runs twelve phases and prints findings for
 each:
 
   0. device and build: torch and CUDA versions, the card's name and power
@@ -50,16 +50,34 @@ each:
      multiply, plan build (host clock), each routed kernel against its
      plain version, `spgemm(alg=1)` and `spgemm_fixed` beside them, the
      device's busy time and idle share; ESC alg2/alg3 times and the
-     peak-memory increase of one alg1/alg2/alg3 call.
+     peak-memory increase of one alg1/alg2/alg3 call;
+ 10. the blocked engines, `spgemm(alg=2)` and `spgemm(alg=3,
+     chunk_fraction=0.2 and 0.05)` with the default `impl`, at the three
+     cells of phase 2 and the edge pairs of phase 7: `densify_onehot_pattern`
+     bitwise against its plain version, every call against scipy and
+     bitwise on rerun, the engine each call took, launch counts of the
+     three kernels of the path; at 1024^2/0.1 the two alg2 and the four alg3
+     engines forced, each set bitwise within itself;
+ 11. their timings at those cells: CUDA-event medians of alg1, each alg2
+     and alg3 engine and ESC, each with its peak-memory increase and host
+     syncs per call; the count and numeric passes apart; device busy time
+     and idle share; `densify_onehot_pattern` against its plain version and
+     torch's CSR `to_dense()`.
 
-Then one JSON line of per-kernel results, and as the last line
-`{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero;
+Then the card's name and power limit, one JSON line of per-kernel results
+(time, plain version's time, launches on the main path, the least time the
+card could take for the same work and what bounds it, and the time of one
+PyTorch library call computing the same function, where there is one), and
+as the last line `{"ok": true, "device": {...}}`.  Any failure raises and
+exits non-zero;
 so does a machine without CUDA.  It imports neither jax nor spmm_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import re
 import statistics
@@ -74,8 +92,9 @@ import torch
 import spmm_tpu_torch as pt
 from spmm_tpu_torch.models import power_law_rows
 from spmm_tpu_torch.ops.kernels import _build
-from spmm_tpu_torch.ops.kernels.densify_onehot import (densify_onehot,
-                                                       densify_onehot_plain)
+from spmm_tpu_torch.ops.kernels.densify_onehot import (
+    densify_onehot, densify_onehot_pattern, densify_onehot_pattern_plain,
+    densify_onehot_plain)
 from spmm_tpu_torch.ops.kernels.extract_roll import (extract_roll,
                                                      extract_roll_plain)
 from spmm_tpu_torch.ops.kernels import spmv_binned as kb
@@ -84,6 +103,7 @@ from spmm_tpu_torch.ops.kernels import spmv_routed as kr
 
 # the module, not the function `spmm_tpu_torch.ops.spgemm` re-exports
 sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+bl = importlib.import_module("spmm_tpu_torch.ops.spgemm_blocked")
 
 # (name, n, density, seed of A, seed of B): the reference's own cells
 # (BASELINE.md:20 headline, :23 dense output, :59 large and sparse)
@@ -93,6 +113,10 @@ CELLS = [("1024^2/0.1", 1024, 0.1, 2008, 2009),
 RTOL = 1e-6  # the repo's stated error target (BASELINE.json)
 RUNS = 25
 WARMUP = 3
+# the card's rates for the least time of a kernel's work (NVIDIA's H100 SXM
+# data sheet, dense): HBM bytes/s, float32 outside the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -113,9 +137,9 @@ def max_abs(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.double() - y.double()).abs().max())
 
 
-def median_ms(fn, runs: int = RUNS) -> float:
+def median_ms(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
     """Median over `runs` of CUDA-event time around one call of `fn`."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -128,6 +152,24 @@ def median_ms(fn, runs: int = RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: int, flops: int = 0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes the work
+    must move over the HBM rate and its float32 operations over the float32
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def torch_csr(indptr, indices, values, shape):
+    """torch's own sparse CSR tensor of the same arrays (a comparator off
+    the port's path)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # beta notices
+        return torch.sparse_csr_tensor(indptr.long(), indices.long(), values,
+                                       shape)
 
 
 def device_profile(fn, calls: int = 10):
@@ -258,34 +300,46 @@ def phase1(dev, cells):
     return err
 
 
+class ScipyRef:
+    """scipy's reference of A @ B, made once: the structure of the pattern
+    product and the float64 values at its entries."""
+
+    def __init__(self, a, b):
+        a_s, b_s = a.to_scipy(), b.to_scipy()
+        ones = [sp.csr_matrix((np.ones(x.nnz), x.indices, x.indptr), x.shape)
+                for x in (a_s, b_s)]
+        struct = (ones[0] @ ones[1]).tocsr()
+        struct.sort_indices()
+        self.indptr, self.indices = struct.indptr, struct.indices
+        ref = (a_s.astype(np.float64) @ b_s.astype(np.float64)).tocsr()
+        rows = np.repeat(np.arange(a.shape[0]), np.diff(struct.indptr))
+        self.want = (np.asarray(ref[rows, struct.indices.astype(
+            np.int64)]).ravel() if rows.size else np.zeros(0))
+
+    def check(self, name, c) -> float:
+        """Structure bitwise; values within RTOL*|want| + RTOL*max|want|.
+        Returns max |err| / tolerance."""
+        if not (np.array_equal(c.indptr.cpu().numpy(), self.indptr)
+                and np.array_equal(c.indices.cpu().numpy(), self.indices)):
+            raise AssertionError(f"{name}: structure differs from scipy")
+        got = c.data.cpu().numpy().astype(np.float64)
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite values")
+        want = self.want
+        scale = np.abs(want).max() if want.size else 0.0
+        tol = RTOL * np.abs(want) + RTOL * scale
+        ratio = float((np.abs(got - want) / np.maximum(tol, 1e-300)).max()
+                      if want.size else 0.0)
+        if ratio > 1.0:
+            raise AssertionError(f"{name}: values off scipy by {ratio:.3g}x "
+                                 f"the tolerance")
+        return ratio
+
+
 def scipy_check(name, a, b, c) -> float:
     """Structure bitwise against scipy's pattern product; values against
     scipy's float64 product.  Returns max |err| / tolerance."""
-    a_s, b_s = a.to_scipy(), b.to_scipy()
-    ones = [sp.csr_matrix((np.ones(x.nnz), x.indices, x.indptr), x.shape)
-            for x in (a_s, b_s)]
-    struct = (ones[0] @ ones[1]).tocsr()
-    struct.sort_indices()
-    indptr = c.indptr.cpu().numpy()
-    indices = c.indices.cpu().numpy()
-    if not (np.array_equal(indptr, struct.indptr)
-            and np.array_equal(indices, struct.indices)):
-        raise AssertionError(f"{name}: structure differs from scipy")
-    ref = (a_s.astype(np.float64) @ b_s.astype(np.float64)).tocsr()
-    rows = np.repeat(np.arange(c.shape[0]), np.diff(indptr))
-    want = (np.asarray(ref[rows, indices.astype(np.int64)]).ravel()
-            if rows.size else np.zeros(0))
-    got = c.data.cpu().numpy().astype(np.float64)
-    if not np.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite values")
-    scale = np.abs(want).max() if want.size else 0.0
-    tol = RTOL * np.abs(want) + RTOL * scale
-    ratio = float((np.abs(got - want) / np.maximum(tol, 1e-300)).max()
-                  if want.size else 0.0)
-    if ratio > 1.0:
-        raise AssertionError(f"{name}: values off scipy by {ratio:.3g}x the "
-                             f"tolerance")
-    return ratio
+    return ScipyRef(a, b).check(name, c)
 
 
 def phase2(cells):
@@ -353,7 +407,11 @@ def phase3(cells, nnzs, smi):
             "extract_plain_ms": median_ms(
                 lambda: extract_roll_plain(c, mask, cap)),
             "spgemm_peak_mb": peak_mb,
+            "a_nnz": a.nnz, "c_nnz": cap,
         }
+        ta_csr = torch_csr(*dens_args[:3], (m, k))
+        row["torch_to_dense_ms"] = median_ms(ta_csr.to_dense)
+        del ta_csr
         busy, top = device_profile(lambda: pt.spgemm(a, b, alg=0))
         row["spgemm_device_busy_ms"] = busy
         row["spgemm_idle_share"] = (None if busy is None
@@ -556,7 +614,8 @@ def phase5(spmv_cells, spmm_cells, checks):
     # break-even curve, else to spmm_routed
     dense = sum(a.density >= pt.break_even_density(*a.shape, X.shape[1])
                 for _, a, X in spmm_cells)
-    want = {"densify_onehot": 2 * dense, "extract_roll": 0,
+    want = {"densify_onehot": 2 * dense, "densify_onehot_pattern": 0,
+            "extract_roll": 0,
             "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
             "spmv_onehot": 2 * nspmv,
             "spmm_routed": 2 * (2 * nspmm + nspmm - dense),
@@ -603,7 +662,8 @@ def phase6(spmv_cells, spmm_cells, smi):
         onehot = ko.spmv_onehot_plan(a.indptr, m, n)
         ta = _torch_csr(a)
         row = {
-            "cell": name, "nnz": a.nnz, "routed_slack": routed.slack,
+            "cell": name, "nnz": a.nnz, "m": m, "n": n,
+            "routed_slack": routed.slack,
             "plan_routed_host_ms": host_ms(
                 lambda: kr.spmv_routed_plan(*args, m, n)),
             "plan_binned_host_ms": host_ms(
@@ -653,7 +713,7 @@ def phase6(spmv_cells, spmm_cells, smi):
         percall = kr.spmv_routed_plan(*args, m, n, sell=False)
         ta = _torch_csr(a)
         row = {
-            "cell": name, "nnz": a.nnz, "k": k,
+            "cell": name, "nnz": a.nnz, "m": m, "n": n, "k": k,
             "plan_routed_host_ms": host_ms(
                 lambda: kr.spmv_routed_plan(*args, m, n)),
             "plan_percall_host_ms": host_ms(
@@ -917,7 +977,13 @@ def phase9(serving, esc_cells, smi):
             "spgemm_alg1_ms": median_ms(lambda: pt.spgemm(a, b, alg=1)),
             "spgemm_fixed_ms": median_ms(
                 lambda: pt.spgemm_fixed(a, b, cap=cap)),
+            "a_nnz": a.nnz, "a_shape": list(a.shape),
         }
+        ta_csr = torch_csr(a.indptr, a.indices, a.data, a.shape)
+        row["expand_library_ms"] = median_ms(ta_csr.to_dense)
+        row["compress_library_ms"] = median_ms(
+            lambda: torch.take(c, plan._pc.pos))
+        del ta_csr
         row["plan_call_host_syncs"] = host_syncs(lambda: plan(a.data, b.data))
         busy, top = device_profile(lambda: plan(a.data, b.data))
         row["plan_call_device_busy_ms"] = busy
@@ -954,6 +1020,270 @@ def phase9(serving, esc_cells, smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# blocked alg2/alg3 engines (phases 10-11)
+# --------------------------------------------------------------------------
+
+# (name, alg, chunk fraction) of the blocked calls, with the default impl
+BLOCKED_RUNS = [("alg2", 2, 0.2), ("alg3 cf=0.2", 3, 0.2),
+                ("alg3 cf=0.05", 3, 0.05)]
+BLOCKED_KERNELS = ("densify_onehot", "densify_onehot_pattern", "extract_roll")
+
+
+def with_engine(call):
+    """(result, engine) of `call(verbose=True)`: the engine named on the
+    blocked engines' verbose line ("scan" for alg2's and "scan2" for alg3's,
+    whose lines, as in the JAX package, name none).  An empty product
+    returns after sizing, before any engine runs or prints: "empty"."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        c = call(verbose=True)
+    lines = [x for x in buf.getvalue().splitlines() if "/blocked]" in x]
+    if not lines and c.nnz == 0:
+        return c, "empty"
+    if len(lines) != 1:
+        raise AssertionError(f"expected one blocked engine line, got "
+                             f"{buf.getvalue()!r}")
+    word = lines[0].split("] ", 1)[1].split()[0]
+    if word.startswith("T="):
+        word = "scan2" if "alg3" in lines[0] else "scan"
+    return c, word
+
+
+@contextlib.contextmanager
+def alg2_engine(name: str):
+    """Force the alg2 engine ("unrolled" or "scan") through its tile
+    bound."""
+    old = bl._ALG2_MAX_UNROLL_TILES
+    bl._ALG2_MAX_UNROLL_TILES = 1 << 30 if name == "unrolled" else 0
+    try:
+        yield
+    finally:
+        bl._ALG2_MAX_UNROLL_TILES = old
+
+
+def same_csr(x, y) -> bool:
+    return (x.shape == y.shape and same_bits(x.indptr, y.indptr)
+            and same_bits(x.indices, y.indices) and same_bits(x.data, y.data))
+
+
+def phase10(dev):
+    """The blocked engines: the pattern kernel against its plain version,
+    every call against scipy, bitwise on rerun, the engines forced at
+    1024^2/0.1; returns (launches, max |kernel - plain|, engines, cells)."""
+    cells = make_cells(dev)
+    pairs = cells + edge_pairs(dev)
+    err = 0.0
+    for name, a, b in pairs:
+        for x in (a, b):
+            got = densify_onehot_pattern(x.indptr, x.indices, *x.shape)
+            want = densify_onehot_pattern_plain(x.indptr, x.indices,
+                                                *x.shape)
+            if not same_bits(got, want):
+                raise AssertionError(f"densify_onehot_pattern != plain at "
+                                     f"{name} {tuple(x.shape)}")
+            err = max(err, max_abs(got, want))
+            del got, want
+    torch.cuda.synchronize()
+    refs = {name: ScipyRef(a, b) for name, a, b in pairs}
+    _build.reset_launches()
+    outs = []
+    for name, a, b in pairs:
+        for what, alg, cf in BLOCKED_RUNS:
+            c, engine = with_engine(
+                lambda verbose, a=a, b=b, alg=alg, cf=cf: pt.spgemm(
+                    a, b, alg=alg, chunk_fraction=cf, verbose=verbose))
+            again = pt.spgemm(a, b, alg=alg, chunk_fraction=cf)
+            outs.append((name, (a.shape[0], b.shape[1]), what, engine, c,
+                         again))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    off_path = {k: v for k, v in launches.items()
+                if v and k not in BLOCKED_KERNELS}
+    if off_path or not all(launches[k] for k in BLOCKED_KERNELS):
+        raise AssertionError(f"blocked launch counts {launches}: expected "
+                             f"{BLOCKED_KERNELS} and nothing else")
+    engines, notes = {}, []
+    for name, shape, what, engine, c, again in outs:
+        if not same_csr(c, again):
+            raise AssertionError(f"{what} at {name}: rerun not bitwise")
+        if tuple(c.shape) != shape or not c.has_canonical_format:
+            raise AssertionError(f"{what} at {name}: bad output {c}")
+        ratio = refs[name].check(f"{what} {name}", c)
+        engines[f"{what} @ {name}"] = engine
+        notes.append(f"{name} {what} [{engine}] nnz={c.nnz} "
+                     f"err/tol={ratio:.3g}")
+    del outs
+    # every engine forced at 1024^2/0.1: each set bitwise within itself
+    name, a, b = cells[0]
+    forced = []
+    with alg2_engine("unrolled"):
+        u = pt.spgemm(a, b, alg=2)
+    with alg2_engine("scan"):
+        s2 = pt.spgemm(a, b, alg=2)
+    if not same_csr(u, s2):
+        raise AssertionError(f"alg2 unrolled != scan at {name}")
+    forced.append("alg2 unrolled == scan")
+    del u, s2
+    for cf in (0.2, 0.05):
+        c3 = [bl.spgemm_alg3_blocked(a, b, 1.0, cf, engine=e)
+              for e in bl._ENGINES]
+        refs[name].check(f"alg3 group cf={cf} {name}", c3[0])
+        if not all(same_csr(c, c3[0]) for c in c3[1:]):
+            raise AssertionError(f"alg3 engines differ at {name} cf={cf}")
+        forced.append(f"alg3 cf={cf} {' == '.join(bl._ENGINES)}")
+        del c3
+    torch.cuda.synchronize()
+    print(f"phase 10: densify_onehot_pattern bitwise at {2 * len(pairs)} "
+          f"operands; launches {launches}; " + "; ".join(notes)
+          + f"; forced at {name}: " + "; ".join(forced), flush=True)
+    return launches, err, engines, cells
+
+
+def alg2_passes(a, b):
+    """(count pass, numeric pass) of the alg2 engine `spgemm` selects, each
+    a function of no argument over inputs prepared once."""
+    m, k = a.shape
+    n = b.shape[1]
+    m_pad = -(-m // bl.TILE) * bl.TILE
+    T = m_pad // bl.TILE
+    ip = bl._pad_indptr(a.indptr, m_pad)
+    ip_h = bl._pad_indptr_h(a.indptr.cpu().numpy(), m_pad)
+
+    def count():
+        _, tilec, mask = bl._alg2_count(ip, a.indices, b.indptr, b.indices,
+                                        m_pad, k, n, T)
+        return tilec.cpu().numpy(), mask
+
+    tilec_h, mask = count()
+    nnz = int(tilec_h.sum())
+    if T <= bl._ALG2_MAX_UNROLL_TILES:
+        caps = [int(c) for c in tilec_h]
+        return count, lambda: bl._alg2_compute_unrolled(
+            ip, ip_h, a.indices, a.data, b.indptr, b.indices, b.data, mask,
+            1.0, m, k, n, T, nnz, caps)
+    del mask
+    cap_tile = -(-int(tilec_h.max()) // 8) * 8
+    return count, lambda: bl._alg2_compute(
+        ip, a.indices, a.data, b.indptr, b.indices, b.data, 1.0, tilec_h, m,
+        m_pad, k, n, T, cap_tile, nnz)
+
+
+def alg3_passes(a, b, cf, engine):
+    """(count pass, numeric pass) of the group and scan2 alg3 engines over
+    inputs prepared once: the group engine counts with the host structural
+    product, scan2 with its device sizing pass."""
+    m, k = a.shape
+    n = b.shape[1]
+    n_b, P, _, m_pad, T = bl._alg3_grid(m, n, cf)
+    host = [x.cpu().numpy() for x in (a.indptr, a.indices, b.indptr,
+                                      b.indices)]
+    blocks = bl._Blocks(a, b, host, n_b, P, m_pad)
+    if engine == "group":
+        indptr_h = bl._structural_product(a, b)[0]
+        nnz = int(indptr_h[-1])
+        bounds = np.minimum(np.arange(T + 1) * bl.TILE, m)
+        caps = [int(indptr_h[bounds[t + 1]] - indptr_h[bounds[t]])
+                for t in range(T)]
+        G = max(1, min(T, bl._GROUP_STAGING_BYTES // (bl.TILE * n * 5)))
+        return (lambda: bl._structural_product(a, b),
+                lambda: bl._alg3_compute_group(blocks, 1.0, n, n_b, T, P, G,
+                                               nnz, caps))
+    if engine != "scan2":
+        raise AssertionError(f"no pass split for the {engine} engine")
+
+    def count():
+        rowc, blockc = bl._alg3_count_fast(blocks, b.indptr, b.indices,
+                                           n_b, T, P)
+        return rowc, blockc.contiguous().cpu().numpy()
+
+    rowc, blockc_h = count()
+    cap_blk = max(-(-int(blockc_h.max()) // 8) * 8, 8)
+    return count, lambda: bl._alg3_compute(
+        blocks, rowc, blockc_h, 1.0, m, n, n_b, T, P, cap_blk,
+        int(blockc_h.sum()))
+
+
+def phase11(cells, engines, smi):
+    """CUDA-event medians of alg1, every blocked engine and ESC with peak
+    memory and host syncs per call, the passes apart, device busy time, and
+    the pattern kernel; returns the rows."""
+    rows = []
+    for name, a, b in cells:
+        slow = name == CELLS[1][0]  # the host structural product takes s
+        runs, warmup = (5, 1) if slow else (RUNS, WARMUP)
+        row = {"cell": name, "runs": runs}
+
+        def measure(key, fn, n_runs=runs):
+            row[f"{key}_peak_mb"] = peak_mb(fn)
+            row[f"{key}_ms"] = median_ms(fn, n_runs, warmup)
+            row[f"{key}_host_syncs"] = host_syncs(fn)
+
+        measure("alg1", lambda: pt.spgemm(a, b, alg=1))
+        default2 = engines[f"alg2 @ {name}"]
+        row["alg2_engine"] = default2
+        for e in ("unrolled", "scan"):
+            def call2(e=e):
+                with alg2_engine(e):
+                    return pt.spgemm(a, b, alg=2)
+            measure(f"alg2_{e}", call2, runs if e == default2 else 5)
+        for what, alg, cf in BLOCKED_RUNS[1:]:
+            default3 = engines[f"{what} @ {name}"]
+            row[f"alg3_cf{cf}_engine"] = default3
+            for e in bl._ENGINES:
+                if slow and e not in (default3, "scan2"):
+                    continue  # each would repeat seconds of host product
+                measure(f"alg3_cf{cf}_{e}",
+                        lambda e=e, cf=cf: bl.spgemm_alg3_blocked(
+                            a, b, 1.0, cf, engine=e),
+                        runs if e == default3 else 5)
+        for what, alg, cf in ESC_RUNS:
+            measure("esc_" + what.replace(" cf=", "_cf"),
+                    lambda alg=alg, cf=cf: pt.spgemm(
+                        a, b, alg=alg, chunk_fraction=cf, impl="esc"))
+        torch.cuda.empty_cache()
+        # the passes apart, for the engines `spgemm` takes
+        count, numeric = alg2_passes(a, b)
+        row["alg2_count_ms"] = median_ms(count, runs, warmup)
+        row["alg2_numeric_ms"] = median_ms(numeric, runs, warmup)
+        del count, numeric
+        for cf in (0.2, 0.05):
+            e = row[f"alg3_cf{cf}_engine"]
+            count, numeric = alg3_passes(a, b, cf, e)
+            clock = host_ms if e == "group" else median_ms
+            row[f"alg3_cf{cf}_count_ms"] = clock(count, 3 if slow else runs)
+            row[f"alg3_cf{cf}_numeric_ms"] = median_ms(numeric, runs, warmup)
+            del count, numeric
+        torch.cuda.empty_cache()
+        calls = 3 if slow else 10
+        for key, fn in (
+                ("alg2", lambda: pt.spgemm(a, b, alg=2)),
+                ("alg3_cf0.2", lambda: pt.spgemm(a, b, alg=3,
+                                                 chunk_fraction=0.2))):
+            busy, top = device_profile(fn, calls=calls)
+            wall = row[f"{key}_{row[key + '_engine']}_ms"]
+            row[f"{key}_device_busy_ms"] = busy
+            row[f"{key}_idle_share"] = (None if busy is None
+                                        else 1.0 - busy / wall)
+            row[f"{key}_device_top_ms"] = top
+        # the pattern kernel on B, against its plain version and torch's
+        # CSR to_dense of bf16 ones
+        k, n = b.shape
+        ones = torch.ones(b.nnz, dtype=torch.bfloat16, device=b.device)
+        tb = torch_csr(b.indptr, b.indices, ones, (k, n))
+        args = (b.indptr, b.indices, k, n)
+        row["pattern_nnz"] = b.nnz
+        row["pattern_ms"] = median_ms(lambda: densify_onehot_pattern(*args))
+        row["pattern_plain_ms"] = median_ms(
+            lambda: densify_onehot_pattern_plain(*args))
+        row["pattern_library_ms"] = median_ms(tb.to_dense)
+        del tb, ones
+        rows.append(row)
+        torch.cuda.empty_cache()
+        print(f"phase 11 [{smi}]: " + json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -976,63 +1306,77 @@ def main():
     launches7, err7, serving = phase7(dev)
     esc_cells = phase8(dev)
     rows9 = phase9(serving, esc_cells, smi)
+    del serving, esc_cells
+    torch.cuda.empty_cache()
+    launches10, err10, engines, blocked_cells = phase10(dev)
+    rows11 = phase11(blocked_cells, engines, smi)
+    del blocked_cells
     t_sv = rows9[0]  # serving 1024^2/0.1
+    t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
+    n1 = CELLS[0][1]  # 1024: the SpGEMM cell of rows 1-3
+    mv_csr = 8 * t_mv["nnz"] + 4 * (t_mv["m"] + 1)
+    mm_csr = 8 * t_mm["nnz"] + 4 * (t_mm["m"] + 1)
+    spmv_bound = bound(mv_csr + 4 * (t_mv["n"] + t_mv["m"]),
+                       2 * t_mv["nnz"])
+    spmm_bound = bound(mm_csr + 4 * t_mm["k"] * (t_mm["n"] + t_mm["m"]),
+                       2 * t_mm["nnz"] * t_mm["k"])
+    sv_m, sv_k = t_sv["a_shape"]
+
+    def kernel(name, source, replaces, launched, max_err, ms, plain_ms,
+               least, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"spmm_tpu_torch/csrc/{source}",
+                "replaces": f"spmm_tpu/ops/kernels/{replaces}",
+                "launches": launched, "max_abs_err": max_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": least[0],
+                "bound_by": least[1], "library_ms": library_ms}
+
+    # bytes: each input read once, each output written once (dense outputs
+    # whole, zeros included); sparse inputs as CSR (int32 indices, f32)
     kernels = [
-        {"name": "densify_onehot", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/densify.cu",
-         "replaces": "spmm_tpu/ops/kernels/densify_onehot.py:309",
-         "launches": launches["densify_onehot"],
-         "max_abs_err": err["densify_onehot"],
-         "ms": head["densify_ms"], "plain_ms": head["densify_plain_ms"]},
-        {"name": "extract_roll", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/extract.cu",
-         "replaces": "spmm_tpu/ops/kernels/extract_roll.py:123",
-         "launches": launches["extract_roll"],
-         "max_abs_err": err["extract_roll"],
-         "ms": head["extract_ms"], "plain_ms": head["extract_plain_ms"]},
-        {"name": "spmv_binned", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/spmv_binned.cu",
-         "replaces": "spmm_tpu/ops/kernels/spmv_binned.py:272",
-         "launches": launches5["spmv_binned"],
-         "max_abs_err": err4["spmv_binned"],
-         "ms": t_mv["spmv_binned_ms"],
-         "plain_ms": t_mv["spmv_binned_plain_ms"]},
-        {"name": "spmv_routed", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/spmv_routed.cu",
-         "replaces": "spmm_tpu/ops/kernels/spmv_routed.py:865",
-         "launches": launches5["spmv_routed"],
-         "max_abs_err": err4["spmv_routed"],
-         "ms": t_mv["spmv_routed_ms"],
-         "plain_ms": t_mv["spmv_routed_plain_ms"]},
-        {"name": "spmm_routed", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/spmm_routed.cu",
-         "replaces": "spmm_tpu/ops/kernels/spmv_routed.py:1054",
-         "launches": launches5["spmm_routed"],
-         "max_abs_err": err4["spmm_routed"],
-         "ms": t_mm["spmm_routed_ms"],
-         "plain_ms": t_mm["spmm_routed_plain_ms"]},
-        {"name": "spmv_onehot", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/spmv_onehot.cu",
-         "replaces": "spmm_tpu/ops/kernels/spmv_onehot.py:147",
-         "launches": launches5["spmv_onehot"],
-         "max_abs_err": err4["spmv_onehot"],
-         "ms": t_mv["spmv_onehot_ms"],
-         "plain_ms": t_mv["spmv_onehot_plain_ms"]},
-        {"name": "expand_routed", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/route.cu",
-         "replaces": "spmm_tpu/ops/kernels/route.py:246",
-         "launches": launches7["expand_routed"],
-         "max_abs_err": err7["expand_routed"],
-         "ms": t_sv["expand_routed_ms"],
-         "plain_ms": t_sv["expand_routed_plain_ms"]},
-        {"name": "compress_routed", "route": "cuda",
-         "source": "spmm_tpu_torch/csrc/route.cu",
-         "replaces": "spmm_tpu/ops/kernels/route.py:318",
-         "launches": launches7["compress_routed"],
-         "max_abs_err": err7["compress_routed"],
-         "ms": t_sv["compress_routed_ms"],
-         "plain_ms": t_sv["compress_routed_plain_ms"]},
+        kernel("densify_onehot", "densify.cu", "densify_onehot.py:309",
+               launches["densify_onehot"], err["densify_onehot"],
+               head["densify_ms"], head["densify_plain_ms"],
+               bound(6 * n1 * n1 + 4 * (n1 + 1) + 8 * head["a_nnz"]),
+               head["torch_to_dense_ms"]),
+        kernel("densify_onehot_pattern", "densify.cu",
+               "densify_onehot.py:250", launches10["densify_onehot_pattern"],
+               err10, t_pat["pattern_ms"], t_pat["pattern_plain_ms"],
+               bound(2 * n1 * n1 + 4 * (n1 + 1) + 4 * t_pat["pattern_nnz"]),
+               t_pat["pattern_library_ms"]),
+        # the kept values are read, the mask whole; torch has no call that
+        # compacts under a mask keeping structural zeros
+        kernel("extract_roll", "extract.cu", "extract_roll.py:123",
+               launches["extract_roll"], err["extract_roll"],
+               head["extract_ms"], head["extract_plain_ms"],
+               bound(n1 * n1 + 4 * (n1 + 1) + 12 * head["c_nnz"]), None),
+        kernel("spmv_binned", "spmv_binned.cu", "spmv_binned.py:272",
+               launches5["spmv_binned"], err4["spmv_binned"],
+               t_mv["spmv_binned_ms"], t_mv["spmv_binned_plain_ms"],
+               spmv_bound, t_mv["torch_csr_mv_ms"]),
+        kernel("spmv_routed", "spmv_routed.cu", "spmv_routed.py:865",
+               launches5["spmv_routed"], err4["spmv_routed"],
+               t_mv["spmv_routed_ms"], t_mv["spmv_routed_plain_ms"],
+               spmv_bound, t_mv["torch_csr_mv_ms"]),
+        kernel("spmm_routed", "spmm_routed.cu", "spmv_routed.py:1054",
+               launches5["spmm_routed"], err4["spmm_routed"],
+               t_mm["spmm_routed_ms"], t_mm["spmm_routed_plain_ms"],
+               spmm_bound, t_mm["torch_csr_mm_ms"]),
+        kernel("spmv_onehot", "spmv_onehot.cu", "spmv_onehot.py:147",
+               launches5["spmv_onehot"], err4["spmv_onehot"],
+               t_mv["spmv_onehot_ms"], t_mv["spmv_onehot_plain_ms"],
+               spmv_bound, t_mv["torch_csr_mv_ms"]),
+        # the plan's int64 positions are an input: 8 bytes an entry
+        kernel("expand_routed", "route.cu", "route.py:246",
+               launches7["expand_routed"], err7["expand_routed"],
+               t_sv["expand_routed_ms"], t_sv["expand_routed_plain_ms"],
+               bound(4 * sv_m * sv_k + 12 * t_sv["a_nnz"]),
+               t_sv["expand_library_ms"]),
+        kernel("compress_routed", "route.cu", "route.py:318",
+               launches7["compress_routed"], err7["compress_routed"],
+               t_sv["compress_routed_ms"], t_sv["compress_routed_plain_ms"],
+               bound(16 * t_sv["nnz"]), t_sv["compress_library_ms"]),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

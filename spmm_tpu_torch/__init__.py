@@ -2,13 +2,14 @@
 
 It is written beside the JAX package `spmm_tpu`, which stays the reference.
 It carries the SpGEMM paths (a CSR container on an explicit torch device
-with `sum_duplicates` and `sort_indices`, `random`, `spgemm` alg 0/1 and
-the ESC alg 2/3, `spgemm_fixed`, and the fixed-structure serving plans
-`spgemm_plan` / `SpgemmPlan`) and the SpMV/SpMM paths (`spmv`,
-`spmv_plan`, `spmm`, `break_even_density`, and `A @ x`, `A @ X`, `x @ A`,
-`X @ A`), with eight hand-written CUDA kernels built with `nvcc` for
-`sm_90a` on first use.  On CPU tensors every kernel runs its
-plain PyTorch version.
+with `sum_duplicates` and `sort_indices`, `random`, `spgemm` alg 0/1, the
+blocked dense and the ESC alg 2/3, `spgemm_fixed`, and the fixed-structure
+serving plans `spgemm_plan` / `SpgemmPlan`) and the SpMV/SpMM paths
+(`spmv`, `spmv_plan`, `spmm`, `break_even_density`, and `A @ x`, `A @ X`,
+`x @ A`, `X @ A`), with nine hand-written CUDA kernels built with `nvcc`
+for `sm_90a` on first use.  Its constructors put data on the card unless
+`device="cpu"` is passed; on CPU tensors every kernel runs its plain
+PyTorch version.
 It imports torch and never jax.
 """
 

@@ -1,7 +1,10 @@
-// Canonical CSR -> dense f32 values (+ bf16 structural 0/1 pattern).
+// Canonical CSR -> dense f32 values (+ bf16 structural 0/1 pattern), and
+// the pattern alone.
 //
-// Replaces the Pallas kernel spmm_tpu/ops/kernels/densify_onehot.py
-// (`densify_onehot`, kernel bodies `_kernel` / `_kernel_val`).  The TPU has
+// Replaces the Pallas kernels of spmm_tpu/ops/kernels/densify_onehot.py:
+// `densify_onehot` (kernel bodies `_kernel` / `_kernel_val`) with
+// `densify_rows`, and `densify_onehot_pattern` (`_kernel_pat`) with
+// `densify_pattern_rows`.  The TPU has
 // no vector scatter, so it places entries with windowed one-hot MXU
 // contractions over a bf16 triple split of each value.  Hopper scatters: one
 // warp per row, lanes striding the row's entries, each lane writing its
@@ -46,6 +49,24 @@ __global__ void densify_rows(const int* __restrict__ indptr,
   }
 }
 
+// Pattern only: the same warp-per-row scatter with no value stream at all
+// (the alg2/alg3 symbolic phase reads the structure and nothing else).  It
+// writes 2 bytes per entry; its bound is the zero-fill of the (m, k) bf16
+// output, 2 bytes per dense cell.
+__global__ void densify_pattern_rows(const int* __restrict__ indptr,
+                                     const int* __restrict__ indices,
+                                     unsigned short* __restrict__ pat,
+                                     int m, long long k) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= m) return;
+  const int end = indptr[row + 1];
+  const long long base = static_cast<long long>(row) * k;
+  for (int t = indptr[row] + lane; t < end; t += 32) {
+    pat[base + indices[t]] = kBf16One;
+  }
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.  `pat` may
@@ -59,6 +80,17 @@ extern "C" int spmm_densify(const int* indptr, const int* indices,
   densify_rows<<<blocks, kWarpsPerBlock * 32, 0,
                  static_cast<cudaStream_t>(stream)>>>(indptr, indices, data,
                                                       val, pat, m, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pattern-only launch on `stream`; the same contract as `spmm_densify`.
+extern "C" int spmm_densify_pattern(const int* indptr, const int* indices,
+                                    unsigned short* pat, int m, long long k,
+                                    void* stream) {
+  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  densify_pattern_rows<<<blocks, kWarpsPerBlock * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(indptr, indices,
+                                                              pat, m, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,7 @@ from spmm_tpu_torch.sparse.csr import CSR
 
 def power_law_rows(m: int, n: int, avg_nnz_per_row: int, alpha: float = 1.5,
                    seed: int = 0, dtype: torch.dtype = torch.float32,
-                   device="cpu") -> CSR:
+                   device="cuda") -> CSR:
     """Canonical CSR with Zipf(alpha)-distributed row lengths scaled to
     `avg_nnz_per_row` on average (each capped at n), columns distinct
     within a row, values U[0,1)."""

@@ -1,5 +1,6 @@
-"""Sparse operations of the port: SpGEMM (alg1 and ESC alg2/alg3),
-fixed-structure serving plans, SpMV, SpMM and `@` dispatch."""
+"""Sparse operations of the port: SpGEMM (alg1, the blocked dense
+alg2/alg3 engines and ESC alg2/alg3), fixed-structure serving plans, SpMV,
+SpMM and `@` dispatch."""
 
 from spmm_tpu_torch.ops.dispatch import (  # noqa: F401
     break_even_density,

@@ -7,8 +7,9 @@ offsets are formed in int64, since row*k+col passes 2^31 at large shapes.
 Everything is deterministic on every device (stable sorts, the fixed
 doubling tree of `segsum_tree`), except `segment_sum_rows` on a CUDA
 tensor (a plain version, never on a card path), which adds with atomics.
-None of these functions reads a value back to the host: sizes that depend
-on the data are passed in by callers that have read them.
+None of these functions reads a value back to the host, apart from
+`to_host` and `to_device`, which move whole int32 arrays in one copy each:
+sizes that depend on the data are passed in by callers that have read them.
 """
 
 from __future__ import annotations
@@ -197,6 +198,22 @@ def segment_sum_rows(values: torch.Tensor, indptr: torch.Tensor
     out = torch.zeros((m, *values.shape[1:]), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, rows, values)
+
+
+def to_host(*tensors: torch.Tensor):
+    """Host numpy copies of 1-D int32 tensors of one device, read back in one
+    copy (one host sync on a card)."""
+    sizes = [t.numel() for t in tensors]
+    flat = torch.cat(tensors).cpu().numpy()
+    return np.split(flat, np.cumsum(sizes)[:-1])
+
+
+def to_device(device, *arrays):
+    """1-D int32 tensors on `device` holding the host `arrays` (flattened),
+    sent in one copy (one host sync on a card); views of one buffer."""
+    flat = [np.asarray(x, np.int32).ravel() for x in arrays]
+    buf = torch.from_numpy(np.concatenate(flat)).to(device)
+    return torch.split(buf, [x.size for x in flat])
 
 
 def csr_to_dense_canonical(indptr: torch.Tensor, indices: torch.Tensor,

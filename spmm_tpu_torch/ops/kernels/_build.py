@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # what `ptxas -v` said of each kernel (registers, spills) at the last build
 PTXAS_REPORT = []
 
-LAUNCHES = {"densify_onehot": 0, "extract_roll": 0, "spmv_binned": 0,
+LAUNCHES = {"densify_onehot": 0, "densify_onehot_pattern": 0,
+            "extract_roll": 0, "spmv_binned": 0,
             "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0,
             "expand_routed": 0, "compress_routed": 0}
 
@@ -46,6 +47,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # indptr, indices, data, val, pat, m, k, stream
     "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _P),
+    # indptr, indices, pat, m, k, stream
+    "spmm_densify_pattern": (_P, _P, _P, _I, _L, _P),
     # mask, counts, m, n, stream
     "spmm_extract_count": (_P, _P, _I, _I, _P),
     # c, mask, indptr, col, vals, m, n, cap, stream

@@ -14,23 +14,27 @@ from spmm_tpu_torch.ops import _primitives as prim
 
 def check_csr(indptr, indices, data, m: int, what: str) -> None:
     """A CSR's arrays: contiguous 1-D int32 / int32 / float32 on one CPU or
-    CUDA device, indptr of length m + 1."""
-    for name, t, dtype in (("indptr", indptr, prim.INDEX_DTYPE),
-                           ("indices", indices, prim.INDEX_DTYPE),
-                           ("data", data, torch.float32)):
+    CUDA device, indptr of length m + 1.  `data` None checks the structure
+    alone (against the device of `indices`)."""
+    arrays = [("indptr", indptr, prim.INDEX_DTYPE),
+              ("indices", indices, prim.INDEX_DTYPE)]
+    if data is not None:
+        arrays.append(("data", data, torch.float32))
+    ref, ref_name = arrays[-1][1], arrays[-1][0]
+    for name, t, dtype in arrays:
         if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous 1-D "
                              f"{dtype} tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != data.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, data on "
-                             f"{data.device}")
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {data.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, {ref_name} "
+                             f"on {ref.device}")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {ref.device}")
     if indptr.numel() != m + 1:
         raise ValueError(f"{what}: indptr has {indptr.numel()} entries for "
                          f"{m} rows")
-    if indices.numel() != data.numel():
+    if data is not None and indices.numel() != data.numel():
         raise ValueError(f"{what}: indices and data differ in length")
 
 

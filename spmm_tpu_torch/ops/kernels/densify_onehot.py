@@ -1,15 +1,18 @@
-"""Canonical CSR -> dense f32 values + bf16 structural 0/1 pattern.
+"""Canonical CSR -> dense f32 values + bf16 structural 0/1 pattern, or the
+pattern alone.
 
-Port of `spmm_tpu/ops/kernels/densify_onehot.py::densify_onehot`.  On a CUDA
-tensor the wrapper launches the hand-written kernel `csrc/densify.cu` (one
-warp per row, a direct scatter: canonical positions are unique, so no
-atomics); on a CPU tensor it runs `densify_onehot_plain`.  Both give the
-same bits: values are moved, never computed.
+Port of `spmm_tpu/ops/kernels/densify_onehot.py::densify_onehot` and
+`::densify_onehot_pattern`.  On a CUDA tensor each wrapper launches its
+hand-written kernel in `csrc/densify.cu` (one warp per row, a direct
+scatter: canonical positions are unique, so no atomics); on a CPU tensor it
+runs its plain version.  Both give the same bits: values are moved, never
+computed, and a stored zero stays 1 in the pattern.
 
-The TPU kernel's static chunk plan (`densify_onehot_plan`) and its bf16
-value splits exist because the TPU has no vector scatter; the CUDA kernel
-needs neither, so the port takes no plan.  Bound on the card: the zero-fill
-of the outputs (6 bytes a dense cell), not the scatter.
+The TPU kernels' static chunk plan (`densify_onehot_plan`) and their bf16
+value splits exist because the TPU has no vector scatter; the CUDA kernels
+need neither, so the port takes no plan.  Bound on the card: the zero-fill
+of the outputs (6 bytes a dense cell, 2 for the pattern alone), not the
+scatter.
 """
 
 from __future__ import annotations
@@ -59,3 +62,32 @@ def densify_onehot(indptr: torch.Tensor, indices: torch.Tensor,
     _build.check(err, "densify_onehot")
     _build.LAUNCHES["densify_onehot"] += 1
     return val, pat
+
+
+def densify_onehot_pattern_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                                 m: int, k: int) -> torch.Tensor:
+    """Plain PyTorch version of the pattern kernel, on any device."""
+    ones = torch.ones(indices.numel(), dtype=torch.bfloat16,
+                      device=indices.device)
+    return prim.csr_to_dense_canonical(indptr, indices, ones, (m, k))
+
+
+def densify_onehot_pattern(indptr: torch.Tensor, indices: torch.Tensor,
+                           m: int, k: int) -> torch.Tensor:
+    """The (m, k) bf16 structural 0/1 pattern of a canonical CSR (explicit
+    zeros kept, empty rows 0), with no value stream: the symbolic phase of
+    the blocked alg2/alg3 engines."""
+    check_csr(indptr, indices, None, m, "densify_onehot_pattern")
+    if indices.device.type == "cpu":
+        return densify_onehot_pattern_plain(indptr, indices, m, k)
+    pat = torch.zeros((m, k), dtype=torch.bfloat16, device=indices.device)
+    if m == 0 or k == 0 or indices.numel() == 0:
+        return pat  # a zero-size grid is a launch error
+    lib = _build.library()
+    with torch.cuda.device(indices.device):
+        err = lib.spmm_densify_pattern(
+            indptr.data_ptr(), indices.data_ptr(), pat.data_ptr(), m, k,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "densify_onehot_pattern")
+    _build.LAUNCHES["densify_onehot_pattern"] += 1
+    return pat

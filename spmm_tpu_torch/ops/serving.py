@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels.route import (
     compress_plan_from_flat, densify_routed, expand_route_plan,
     extract_routed)
@@ -40,8 +41,7 @@ def _structural_product(a, b) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     semantics, `spgemm._alg1_dense_compute`)."""
     m, k = a.shape
     n = b.shape[1]
-    ai, aj, bi, bj = (t.cpu().numpy() for t in (a.indptr, a.indices,
-                                                 b.indptr, b.indices))
+    ai, aj, bi, bj = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
     try:
         import scipy.sparse as sp
 

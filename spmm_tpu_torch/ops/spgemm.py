@@ -1,5 +1,6 @@
-"""SpGEMM C = alpha * A @ B, both CSR: the alg1 dense-intermediate path and
-the expand-sort-compress (ESC) alg2/alg3 engine.
+"""SpGEMM C = alpha * A @ B, both CSR: the alg1 dense-intermediate path,
+the expand-sort-compress (ESC) alg2/alg3 engine, and the dispatch to the
+blocked dense alg2/alg3 engines (`ops/spgemm_blocked.py`).
 
 Port of `spmm_tpu/ops/spgemm.py`, in the same order of operations, so the
 output comes out in the same form.  alg1:
@@ -21,8 +22,9 @@ doubling tree (`_primitives.segsum_tree`).  Every product is one f32
 multiply and the tree is the JAX package's, so the values are bitwise those
 of `spmm_tpu` (and of `native/spgemm_cross_check.cpp`), on every device, for
 every chunk fraction.  ESC has no Pallas kernel; it is plain PyTorch here as
-it is plain JAX there.  The blocked dense alg2/alg3 engines
-(`spmm_tpu/ops/spgemm_blocked.py`) are not ported yet (ROADMAP §1.6).
+it is plain JAX there.  `spgemm` sends alg2/alg3 to the blocked dense
+engines where A and B dense panels fit the budget (`_blocked_feasible`) and
+to ESC elsewhere, as the JAX package does.
 
 The GEMMs are `torch.matmul`, as the JAX package leaves them to XLA.  The
 JAX marker trick (`_TINY`, `_densify_marked`, `_tiny_collision`,
@@ -383,11 +385,10 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
     temporaries fit `_DENSE_BUDGET_BYTES`, else alg 2; `chunk_fraction`
     applies to alg 3.
 
-    `impl` selects the alg2/alg3 engine as in the JAX package: "esc" runs
-    expand-sort-compress; "dense" and, where A/B dense panels fit the
-    budget, "auto" select the blocked dense engines, which are not ported
-    yet and raise `NotImplementedError` (ROADMAP §1.6); "auto" runs ESC
-    elsewhere."""
+    `impl` selects the alg2/alg3 engine as in the JAX package: "dense"
+    and, where A/B dense panels fit the budget, "auto" run the blocked
+    dense engines (`ops/spgemm_blocked.py`) when both operands have
+    entries; "esc" and every other case run expand-sort-compress."""
     _check_operands(a, b)
     if alg not in (0, 1, 2, 3):
         raise ValueError(f"unknown alg {alg!r} (expected 0, 1, 2 or 3)")
@@ -410,10 +411,13 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
     use_blocked = (impl == "dense"
                    or (impl == "auto" and _blocked_feasible(a, b)))
     if use_blocked and a.nnz and b.nnz:
-        raise NotImplementedError(
-            f"spgemm alg={alg} impl={impl!r} selects the blocked dense "
-            "engine (A and B dense panels fit the budget), not ported yet "
-            "(ROADMAP §1.6); impl='esc' runs the ESC engine")
+        from spmm_tpu_torch.ops import spgemm_blocked as blocked
+
+        if alg == 2:
+            return blocked.spgemm_alg2_blocked(a, b, alpha, precision,
+                                               verbose)
+        return blocked.spgemm_alg3_blocked(a, b, alpha, chunk_fraction,
+                                           precision, verbose)
     if alg == 2:
         return _spgemm_alg2_esc(a, b, alpha)
     return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)

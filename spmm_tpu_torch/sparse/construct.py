@@ -18,8 +18,9 @@ from spmm_tpu_torch.sparse.csr import CSR
 
 def random(m: int, n: int, density: float = 0.01, format: str = "csr",
            dtype: torch.dtype = torch.float32, seed=None,
-           device="cpu") -> CSR:
-    """Random canonical CSR with exactly ``int(density*m*n)`` entries.
+           device="cuda") -> CSR:
+    """Random canonical CSR with exactly ``int(density*m*n)`` entries, on
+    the card unless `device` says otherwise.
 
     `seed` is an int, None, or a `numpy.random.Generator` to draw from.
     """

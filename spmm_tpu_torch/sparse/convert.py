@@ -13,8 +13,9 @@ import numpy as np
 from spmm_tpu_torch.sparse.csr import CSR
 
 
-def from_reference(obj, device="cpu") -> CSR:
-    """The port's CSR holding the same indptr, indices and data as `obj`."""
+def from_reference(obj, device="cuda") -> CSR:
+    """The port's CSR holding the same indptr, indices and data as `obj`,
+    on the card unless `device` says otherwise."""
     fmt = getattr(obj, "format", "csr")
     if fmt != "csr":
         raise TypeError(f"from_reference expects a CSR matrix, got format "

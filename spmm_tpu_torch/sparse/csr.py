@@ -54,9 +54,10 @@ class CSR(SparseMatrix):
     def from_parts(cls, indptr, indices, data, shape, *, canonical=False,
                    device=None) -> "CSR":
         """CSR from tensors or arrays, moved to `device` (default: the
-        device of `data` when it is a tensor, else the CPU)."""
+        device of `data` when it is a tensor, else the card; raises where
+        there is none)."""
         if device is None:
-            device = data.device if isinstance(data, torch.Tensor) else "cpu"
+            device = data.device if isinstance(data, torch.Tensor) else "cuda"
         device = _checked_device(device)
         out = cls(_as_tensor(indptr, INDEX_DTYPE, device),
                   _as_tensor(indices, INDEX_DTYPE, device),
@@ -80,7 +81,7 @@ class CSR(SparseMatrix):
                              "[0, n)")
 
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "CSR":
+    def from_scipy(cls, mat, device="cuda") -> "CSR":
         mat = mat.tocsr()
         return cls.from_parts(mat.indptr, mat.indices, mat.data, mat.shape,
                               canonical=bool(mat.has_canonical_format),

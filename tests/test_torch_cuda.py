@@ -119,8 +119,8 @@ def test_wrappers_reject_mixed_devices(dev):
     (32, 32, 32, 0.9),        # full output
 ])
 def test_spgemm_on_card_matches_cpu_path(dev, m, k, n, density):
-    a = pt.random(m, k, density, seed=1)
-    b = pt.random(k, n, density, seed=2)
+    a = pt.random(m, k, density, seed=1, device="cpu")
+    b = pt.random(k, n, density, seed=2, device="cpu")
     want = pt.spgemm(a, b)
     before = dict(_build.LAUNCHES)
     got = pt.spgemm(a.to(dev), b.to(dev))
@@ -385,8 +385,8 @@ def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta):
 @pytest.mark.parametrize("m,k,n,density", [(40, 72, 56, 0.2),
                                            (256, 256, 256, 0.1)])
 def test_spgemm_plan_on_card(dev, m, k, n, density):
-    a = pt.random(m, k, density, seed=5)
-    b = pt.random(k, n, density, seed=6)
+    a = pt.random(m, k, density, seed=5, device="cpu")
+    b = pt.random(k, n, density, seed=6, device="cpu")
     want = pt.spgemm_plan(a, b)(a.data, b.data)  # CPU: plain versions
     ad, bd = a.to(dev), b.to(dev)
     plan = pt.spgemm_plan(ad, bd)
@@ -418,8 +418,8 @@ def test_spgemm_plan_on_card(dev, m, k, n, density):
 @pytest.mark.gpu
 @pytest.mark.parametrize("alg,cf", [(2, 0.2), (3, 1.0), (3, 0.2), (3, 0.05)])
 def test_esc_on_card_bitwise_vs_cpu(dev, alg, cf):
-    a = pt.random(300, 200, 0.05, seed=7)
-    b = pt.random(200, 250, 0.05, seed=8)
+    a = pt.random(300, 200, 0.05, seed=7, device="cpu")
+    b = pt.random(200, 250, 0.05, seed=8, device="cpu")
     want = pt.spgemm(a, b, alpha=1.5, alg=alg, chunk_fraction=cf, impl="esc")
     got = pt.spgemm(a.to(dev), b.to(dev), alpha=1.5, alg=alg,
                     chunk_fraction=cf, impl="esc")
@@ -435,7 +435,8 @@ def test_sum_duplicates_on_card_bitwise_vs_cpu(dev):
     from torch_port_helpers import unsorted_csr_arrays
 
     arrays = unsorted_csr_arrays(120, 90, 0.1, 9, max_run=4)
-    want = pt.CSR.from_parts(*arrays, (120, 90)).sum_duplicates()
+    want = pt.CSR.from_parts(*arrays, (120, 90),
+                             device="cpu").sum_duplicates()
     got = pt.CSR.from_parts(*arrays, (120, 90), device=dev).sum_duplicates()
     assert got.has_canonical_format
     for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
@@ -480,3 +481,143 @@ def test_host_syncs_on_card(dev):
     u = pt.CSR.from_parts(*unsorted_csr_arrays(50, 40, 0.2, 3), (50, 40),
                           device=dev)
     assert _host_syncs(u.sum_duplicates) == 1
+
+
+# ---------------------------------------------------------------------------
+# device defaults; densify_onehot_pattern; the blocked alg2/alg3 engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_entry_points_default_to_the_card(dev):
+    import scipy.sparse as sp
+
+    from spmm_tpu_torch.models import power_law_rows
+
+    indptr, indices, data = csr_arrays(8, 8, 0.5, seed=3)
+    s = sp.csr_matrix((data, indices, indptr), shape=(8, 8))
+    for a in (pt.random(8, 8, 0.5), pt.from_reference(s),
+              pt.CSR.from_scipy(s), pt.CSR.from_parts(indptr, indices, data,
+                                                      (8, 8)),
+              power_law_rows(64, 64, 4, seed=0)):
+        assert a.device == dev
+        assert a.indptr.device == a.indices.device == dev
+    # a tensor keeps its device
+    cpu = pt.CSR.from_parts(indptr, indices, torch.from_numpy(data), (8, 8))
+    assert cpu.device == torch.device("cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,density,kw", [
+    (64, 128, 0.1, {}),
+    (100, 300, 0.05, {}),
+    (33, 45, 0.3, {"zeros": 3, "empty_rows": (0, 7, 32)}),
+    (1, 5000, 0.2, {}),
+    (3000, 7, 0.5, {}),
+])
+def test_densify_pattern_kernel_bitwise_vs_plain(dev, m, k, density, kw):
+    from spmm_tpu_torch.ops.kernels.densify_onehot import (
+        densify_onehot_pattern, densify_onehot_pattern_plain)
+
+    indptr, indices, _ = _on(dev, *csr_arrays(m, k, density, seed=m + k,
+                                              **kw))
+    before = _build.LAUNCHES["densify_onehot_pattern"]
+    got = densify_onehot_pattern(indptr, indices, m, k)
+    assert _build.LAUNCHES["densify_onehot_pattern"] == before + 1
+    want = densify_onehot_pattern_plain(indptr, indices, m, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, k)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_densify_pattern_empty_launches_nothing(dev):
+    from spmm_tpu_torch.ops.kernels.densify_onehot import (
+        densify_onehot_pattern)
+
+    indptr, indices, _ = _on(dev, *csr_arrays(6, 9, 0.0, seed=1))
+    before = dict(_build.LAUNCHES)
+    pat = densify_onehot_pattern(indptr, indices, 6, 9)
+    assert _build.LAUNCHES == before
+    assert not pat.any() and pat.shape == (6, 9)
+
+
+def _scipy_check(a, b, c, alpha=1.0):
+    """Structure bitwise against scipy's pattern product, values within
+    rtol 1e-6 + atol 1e-6 * max|C| of its float64 product."""
+    sa, sb = a.to_scipy(), b.to_scipy()
+    ones = [sp_ones(x) for x in (sa, sb)]
+    struct = (ones[0] @ ones[1]).tocsr()
+    struct.sort_indices()
+    assert_bitwise(c.indptr, struct.indptr.astype(np.int32))
+    assert_bitwise(c.indices, struct.indices.astype(np.int32))
+    ref = (alpha * (sa.astype(np.float64) @ sb.astype(np.float64))).tocsr()
+    rows = np.repeat(np.arange(c.shape[0]), np.diff(struct.indptr))
+    want = np.asarray(ref[rows, struct.indices]).ravel()
+    got = c.data.cpu().double().numpy()
+    tol = 1e-6 * np.abs(want) + 1e-6 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all()
+
+
+def sp_ones(x):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((np.ones(x.nnz), x.indices, x.indptr), x.shape)
+
+
+def _bitwise_csr(x, y):
+    for u, v in ((x.indptr, y.indptr), (x.indices, y.indices),
+                 (x.data, y.data)):
+        assert_bitwise(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [0.05, 0.3, 1.0])
+def test_blocked_engines_on_card(dev, cf, monkeypatch):
+    """alg2 (both engines) and every alg3 engine against scipy; each set
+    bitwise within itself and on rerun; the pattern, value and extraction
+    kernels all launched."""
+    from spmm_tpu_torch.ops import spgemm_blocked as bl
+
+    a = pt.random(300, 200, 0.1, seed=21, device=dev)
+    b = pt.random(200, 260, 0.1, seed=22, device=dev)
+    _build.reset_launches()
+    c2 = pt.spgemm(a, b, alpha=-2.5, alg=2)
+    assert all(_build.LAUNCHES[x] for x in
+               ("densify_onehot_pattern", "densify_onehot", "extract_roll"))
+    _scipy_check(a, b, c2, -2.5)
+    _bitwise_csr(pt.spgemm(a, b, alpha=-2.5, alg=2), c2)
+    monkeypatch.setattr(bl, "_ALG2_MAX_UNROLL_TILES", 1)
+    _bitwise_csr(pt.spgemm(a, b, alpha=-2.5, alg=2), c2)
+    outs = [bl.spgemm_alg3_blocked(a, b, -2.5, cf, engine=e)
+            for e in ("group", "unrolled", "scan3", "scan2")]
+    torch.cuda.synchronize()
+    _scipy_check(a, b, outs[0], -2.5)
+    for c in outs[1:]:
+        _bitwise_csr(c, outs[0])
+    _bitwise_csr(pt.spgemm(a, b, alpha=-2.5, alg=3, chunk_fraction=cf),
+                 outs[0])
+
+
+@pytest.mark.gpu
+def test_blocked_host_syncs_do_not_grow_with_blocks(dev, monkeypatch):
+    """One call's host syncs are the same at two sizes with different
+    numbers of tiles and panels, for each engine."""
+    from spmm_tpu_torch.ops import spgemm_blocked as bl
+
+    small = (pt.random(200, 150, 0.1, seed=1, device=dev),
+             pt.random(150, 180, 0.1, seed=2, device=dev))
+    large = (pt.random(700, 300, 0.05, seed=3, device=dev),
+             pt.random(300, 650, 0.05, seed=4, device=dev))
+    calls = [("alg2", lambda a, b: pt.spgemm(a, b, alg=2))]
+    calls += [(e, lambda a, b, e=e: bl.spgemm_alg3_blocked(
+        a, b, 1.0, 0.2, engine=e)) for e in bl._ENGINES]
+    for name, call in calls:
+        counts = []
+        for a, b in (small, large):
+            call(a, b)
+            counts.append(_host_syncs(lambda: call(a, b)))
+        assert counts[0] == counts[1], (name, counts)
+    monkeypatch.setattr(bl, "_ALG2_MAX_UNROLL_TILES", 1)
+    assert (_host_syncs(lambda: pt.spgemm(*small, alg=2))
+            == _host_syncs(lambda: pt.spgemm(*large, alg=2)))

@@ -333,7 +333,8 @@ def test_plan_empty_output():
     b_arr = (bi, np.array([5], np.int32), np.ones(1, np.float32))
     a_ref = st.CSR.from_parts(*a_arr, (128, 128), canonical=True)
     b_ref = st.CSR.from_parts(*b_arr, (128, 128), canonical=True)
-    a, b = pt.from_reference(a_ref), pt.from_reference(b_ref)
+    a = pt.from_reference(a_ref, device="cpu")
+    b = pt.from_reference(b_ref, device="cpu")
     plan = pt.spgemm_plan(a, b)
     assert plan.nnz == st.spgemm_plan(a_ref, b_ref, interpret=True).nnz == 0
     assert plan.routed == (True, True, False)
@@ -357,7 +358,7 @@ def test_plan_validates():
     with pytest.raises(TypeError, match="CSR"):
         pt.spgemm_plan(a, b.toarray())
     with pytest.raises(ValueError, match="mismatch"):
-        pt.spgemm_plan(a, pt.random(64, 8, 0.1, seed=0))
+        pt.spgemm_plan(a, pt.random(64, 8, 0.1, seed=0, device="cpu"))
     with pytest.raises(NotImplementedError, match="precision"):
         pt.spgemm_plan(a, b, precision="high")
     b64 = pt.CSR(b.indptr, b.indices, b.data.double(), b.shape,

@@ -80,7 +80,8 @@ def test_cancellation_stays_structural():
     a_ref = st.CSR.from_parts(*a_arr, (1, 2), canonical=True)
     b_ref = st.CSR.from_parts(*b_arr, (2, 1), canonical=True)
     want = st.spgemm(a_ref, b_ref, alg=1)
-    got = pt.spgemm(pt.from_reference(a_ref), pt.from_reference(b_ref))
+    got = pt.spgemm(pt.from_reference(a_ref, device="cpu"),
+                    pt.from_reference(b_ref, device="cpu"))
     assert got.nnz == want.nnz == 1
     assert float(got.data[0]) == 0.0
     assert_csr_match(got, want)
@@ -217,19 +218,23 @@ def test_matmul_rejects_scalars_and_dense():
 
 @pytest.mark.parametrize("alg", [2, 3])
 def test_unported_algs_raise(alg):
-    _, a, _, b = _operands(*SPGEMM_CASES["square"])
-    with pytest.raises(NotImplementedError, match="ESC"):
-        pt.spgemm(a, b, alg=alg)
+    """alg 2 and 3 with the default impl run the blocked engines, as in JAX
+    (the name is kept from when they were not ported and raised)."""
+    a_ref, a, b_ref, b = _operands(*SPGEMM_CASES["square"])
+    got = pt.spgemm(a, b, alg=alg)
+    assert got.has_canonical_format
+    assert_csr_match(got, st.spgemm(a_ref, b_ref, alg=alg))
 
 
 def test_alg0_past_budget_raises(monkeypatch):
     # past the dense budget alg 0 goes to alg 2, as in JAX: the blocked
-    # engine where A and B panels still fit (not ported: it raises), ESC
-    # where they do not
+    # engine where A and B panels still fit, ESC where they do not (the
+    # name is kept from when the blocked engine raised)
     a_ref, a, b_ref, b = _operands(*SPGEMM_CASES["square"])
     monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 40000)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        pt.spgemm(a, b, alg=0)
+    monkeypatch.setattr(jax_sg, "_DENSE_BUDGET_BYTES", 40000)
+    assert pt_sg._blocked_feasible(a, b)
+    assert_csr_match(pt.spgemm(a, b, alg=0), st.spgemm(a_ref, b_ref, alg=0))
     monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 1000)
     monkeypatch.setattr(jax_sg, "_DENSE_BUDGET_BYTES", 1000)
     got = pt.spgemm(a, b, alg=0)
@@ -264,8 +269,8 @@ def test_non_canonical_input_raises():
     indptr = np.array([0, 2, 3], np.int32)
     indices = np.array([3, 1, 0], np.int32)
     data = np.array([1.0, 2.0, 3.0], np.float32)
-    a = pt.CSR.from_parts(indptr, indices, data, (2, 4))
-    b = pt.random(4, 3, 0.5, seed=1)
+    a = pt.CSR.from_parts(indptr, indices, data, (2, 4), device="cpu")
+    b = pt.random(4, 3, 0.5, seed=1, device="cpu")
     assert not a.check_canonical()
     a_ref = st.CSR.from_parts(indptr, indices, data, (2, 4))
     assert_bitwise(a.toarray(), np.asarray(a_ref.toarray()))
@@ -293,17 +298,53 @@ def test_from_parts_rejects_out_of_bounds_structure(indptr, indices):
     data = np.ones(3, np.float32)
     with pytest.raises(ValueError, match="invalid CSR structure"):
         pt.CSR.from_parts(np.array(indptr, np.int32),
-                          np.array(indices, np.int32), data, (2, 4))
+                          np.array(indices, np.int32), data, (2, 4),
+                          device="cpu")
 
 
 def test_unflagged_sorted_input_is_accepted():
     arrays = csr_arrays(30, 20, 0.2, seed=12)
     a_ref = st.CSR.from_parts(*arrays, (30, 20), canonical=True)
-    a = pt.CSR.from_parts(*arrays, (30, 20))  # canonical flag not set
+    # canonical flag not set
+    a = pt.CSR.from_parts(*arrays, (30, 20), device="cpu")
     b_ref, b = pair(20, 25, 0.3, 13)
     assert not a.has_canonical_format
     assert a.sum_duplicates().has_canonical_format
     assert_csr_match(pt.spgemm(a, b), st.spgemm(a_ref, b_ref, alg=1))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """`random`, `from_reference`, `CSR.from_scipy`, `CSR.from_parts` of
+    host arrays and `power_law_rows` place data on the card unless asked
+    for the CPU, and raise where there is no card (no fallback)."""
+    import scipy.sparse as sp
+
+    from spmm_tpu_torch.models import power_law_rows
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = csr_arrays(8, 8, 0.5, seed=0)
+    s = sp.csr_matrix((arrays[2], arrays[1], arrays[0]), shape=(8, 8))
+    builders = [lambda **kw: pt.random(8, 8, 0.5, seed=0, **kw),
+                lambda **kw: pt.from_reference(s, **kw),
+                lambda **kw: pt.CSR.from_scipy(s, **kw),
+                lambda **kw: pt.CSR.from_parts(*arrays, (8, 8), **kw),
+                lambda **kw: power_law_rows(64, 64, 4, seed=0, **kw)]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        assert build(device="cpu").device == torch.device("cpu")
+    # a tensor keeps its own device
+    data = torch.from_numpy(arrays[2])
+    assert pt.CSR.from_parts(arrays[0], arrays[1], data,
+                             (8, 8)).device == torch.device("cpu")
+
+
+def test_random_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: random() lands on it "
+                    "(tests/test_torch_cuda.py)")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.random(8, 8, 0.5)
 
 
 def test_to_cuda_without_cuda_raises(monkeypatch):
@@ -333,31 +374,32 @@ def test_from_reference_carries_arrays_and_flag():
     assert_bitwise(a.toarray(), np.asarray(a_ref.toarray()))
     s = a.to_scipy()
     assert (s != a_ref.to_scipy()).nnz == 0
-    assert pt.from_reference(s).has_canonical_format
-    assert_bitwise(pt.CSR.from_scipy(s).data, a.data)
+    assert pt.from_reference(s, device="cpu").has_canonical_format
+    assert_bitwise(pt.CSR.from_scipy(s, device="cpu").data, a.data)
     with pytest.raises(TypeError, match="format"):
-        pt.from_reference(sp.csc_matrix(s))
+        pt.from_reference(sp.csc_matrix(s), device="cpu")
 
 
 def test_random_semantics():
-    a = pt.random(50, 60, 0.1, seed=3)
+    a = pt.random(50, 60, 0.1, seed=3, device="cpu")
     assert a.nnz == int(0.1 * 50 * 60) and a.shape == (50, 60)
     assert a.has_canonical_format and a.check_canonical()
     assert a.dtype == torch.float32
     assert float(a.data.min()) >= 0.0 and float(a.data.max()) < 1.0
-    again = pt.random(50, 60, 0.1, seed=3)
+    again = pt.random(50, 60, 0.1, seed=3, device="cpu")
     assert_bitwise(again.indices, a.indices)
     assert_bitwise(again.data, a.data)
     gen = np.random.default_rng(3)
-    assert_bitwise(pt.random(50, 60, 0.1, seed=gen).data, a.data)
-    assert pt.random(50, 60, 0.1, dtype=torch.float64, seed=3).dtype == \
-        torch.float64
-    assert pt.random(7, 9, 0.0, seed=1).nnz == 0
-    assert pt.random(7, 9, 1.0, seed=1).nnz == 63
+    assert_bitwise(pt.random(50, 60, 0.1, seed=gen, device="cpu").data,
+                   a.data)
+    assert pt.random(50, 60, 0.1, dtype=torch.float64, seed=3,
+                     device="cpu").dtype == torch.float64
+    assert pt.random(7, 9, 0.0, seed=1, device="cpu").nnz == 0
+    assert pt.random(7, 9, 1.0, seed=1, device="cpu").nnz == 63
     with pytest.raises(NotImplementedError, match="CSR"):
-        pt.random(5, 5, 0.1, format="coo")
+        pt.random(5, 5, 0.1, format="coo", device="cpu")
     with pytest.raises(ValueError, match="density"):
-        pt.random(5, 5, 1.5)
+        pt.random(5, 5, 1.5, device="cpu")
 
 
 def test_primitives_match_jax():
@@ -398,8 +440,9 @@ def test_port_imports_without_jax():
             "sys.modules['spmm_tpu'] = None; "
             "import spmm_tpu_torch as pt; "
             "import spmm_tpu_torch.ops.kernels._build; "
-            "c = pt.random(16, 16, 0.2, seed=0) @ pt.random(16, 16, 0.2, "
-            "seed=1); print(c.nnz)")
+            "c = pt.random(16, 16, 0.2, seed=0, device='cpu') "
+            "@ pt.random(16, 16, 0.2, seed=1, device='cpu'); "
+            "print(c.nnz)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

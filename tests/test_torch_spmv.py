@@ -422,7 +422,7 @@ def test_port_only_errors():
             pt.spmm(a, np.ones((8, 2), np.float32), via=via)
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spmv(a, torch.ones(8, dtype=torch.float64))
-    a64 = pt.random(8, 8, 0.5, seed=0, dtype=torch.float64)
+    a64 = pt.random(8, 8, 0.5, seed=0, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spmm(a64, np.ones((8, 2), np.float32))
     plan = spmv_binned_plan(a.indptr, a.indices, a.data, 8, 8)
@@ -492,7 +492,7 @@ def test_transpose_matches_jax():
 
 def test_power_law_rows_matches_jax_bitwise():
     ref = jax_models.power_law_rows(3000, 2000, 8, seed=1)
-    got = power_law_rows(3000, 2000, 8, seed=1)
+    got = power_law_rows(3000, 2000, 8, seed=1, device="cpu")
     assert got.shape == ref.shape and got.has_canonical_format
     assert_bitwise(got.indptr, np.asarray(ref.indptr))
     assert_bitwise(got.indices, np.asarray(ref.indices))

@@ -56,24 +56,25 @@ def masked_dense(m, n, g, seed):
 
 
 def pair(m, n, density, seed, **kw):
-    """The same matrix as a `spmm_tpu.CSR` and as the port's CSR."""
+    """The same matrix as a `spmm_tpu.CSR` and as the port's CSR on the
+    CPU."""
     import spmm_tpu as st
     from spmm_tpu_torch import from_reference
 
     indptr, indices, data = csr_arrays(m, n, density, seed, **kw)
     ref = st.CSR.from_parts(indptr, indices, data, (m, n), canonical=True)
-    return ref, from_reference(ref)
+    return ref, from_reference(ref, device="cpu")
 
 
 def unsorted_pair(m, n, density, seed, **kw):
     """`unsorted_csr_arrays` as an unflagged `spmm_tpu.CSR` and as the
-    port's CSR."""
+    port's CSR on the CPU."""
     import spmm_tpu as st
     import spmm_tpu_torch as pt
 
     arrays = unsorted_csr_arrays(m, n, density, seed, **kw)
     return (st.CSR.from_parts(*arrays, (m, n)),
-            pt.CSR.from_parts(*arrays, (m, n)))
+            pt.CSR.from_parts(*arrays, (m, n), device="cpu"))
 
 
 def assert_csr_bitwise(got, want):
