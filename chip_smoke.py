@@ -6,8 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs twelve phases and prints findings for
-each:
+`build/spmm_tpu_torch/`), then runs fourteen phases and prints findings
+for each:
 
   0. device and build: torch and CUDA versions, the card's name and power
      limit, the kernels' build time;
@@ -62,7 +62,20 @@ each:
      and alg3 engine and ESC, each with its peak-memory increase and host
      syncs per call; the count and numeric passes apart; device busy time
      and idle share; `densify_onehot_pattern` against its plain version and
-     torch's CSR `to_dense()`.
+     torch's CSR `to_dense()`;
+ 12. the containers slice: `bsr_spmm` against its plain version (within
+     1e-6 of each entry's absolute sum, bitwise on rerun) at four block
+     cells (128x128 blocks of `models.block_sparse`, X of 256 columns), a
+     CSR 8192^2/1e-3 re-tiled by `tobsr()` at (8, 128) and three edges;
+     `csr_densify_mxu` bitwise against its plain version and `toarray()`;
+     the main path with launch counts: `spmm(via="bsr_pallas")`,
+     `spmm(via="bsr")`, `spmm(A_bsr, X)` and `A_bsr @ X` against scipy's
+     float64 product, and `csr_densify_mxu`; full-size round trips
+     COO/CSR/CSC/BSR/DIA bitwise against scipy's conversions;
+ 13. their CUDA-event timings: each kernel, its plain version and torch's
+     library call (BSR @ dense, CSR `to_dense()`), spmm's two BSR routes,
+     `tobsr()`, `tocoo().tocsr()` and `tocsc()`, and the device's busy
+     time and idle share for `spmm(via="bsr_pallas")`.
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
@@ -90,8 +103,11 @@ import scipy.sparse as sp
 import torch
 
 import spmm_tpu_torch as pt
-from spmm_tpu_torch.models import power_law_rows
+from spmm_tpu_torch.models import banded, block_sparse, power_law_rows
 from spmm_tpu_torch.ops.kernels import _build
+from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from spmm_tpu_torch.ops.kernels.densify_mxu import (
+    _launch as densify_mxu_launch, csr_densify_mxu, csr_densify_mxu_plain)
 from spmm_tpu_torch.ops.kernels.densify_onehot import (
     densify_onehot, densify_onehot_pattern, densify_onehot_pattern_plain,
     densify_onehot_plain)
@@ -253,8 +269,8 @@ def ptxas_summary(reports):
 def make_cells(dev):
     out = []
     for name, n, density, sa, sb in CELLS:
-        a = pt.random(n, n, density, seed=sa, device=dev)
-        b = pt.random(n, n, density, seed=sb, device=dev)
+        a = pt.random(n, n, density, format="csr", seed=sa, device=dev)
+        b = pt.random(n, n, density, format="csr", seed=sb, device=dev)
         out.append((name, a, b))
     return out
 
@@ -462,14 +478,15 @@ def make_spmv_cells(dev):
             rng.standard_normal(shape).astype(np.float32)).to(dev)
 
     spmv_cells = [
-        ("spmv 1024^2/0.1", pt.random(1024, 1024, 0.1, seed=2008,
-                                      device=dev)),
-        ("spmv 16384^2/5e-3", pt.random(16384, 16384, 5e-3, seed=2014,
-                                        device=dev)),
+        ("spmv 1024^2/0.1", pt.random(1024, 1024, 0.1, format="csr",
+                                      seed=2008, device=dev)),
+        ("spmv 16384^2/5e-3", pt.random(16384, 16384, 5e-3, format="csr",
+                                        seed=2014, device=dev)),
         ("spmv powerlaw 2^20", plaw),
     ]
     spmm_cells = [
-        ("spmm 10000^2/0.01 k=64", pt.random(10000, 10000, 0.01, seed=2015,
+        ("spmm 10000^2/0.01 k=64", pt.random(10000, 10000, 0.01,
+                                              format="csr", seed=2015,
                                               device=dev)),
         ("spmm powerlaw 2^20 k=64", plaw),
     ]
@@ -614,12 +631,11 @@ def phase5(spmv_cells, spmm_cells, checks):
     # break-even curve, else to spmm_routed
     dense = sum(a.density >= pt.break_even_density(*a.shape, X.shape[1])
                 for _, a, X in spmm_cells)
-    want = {"densify_onehot": 2 * dense, "densify_onehot_pattern": 0,
-            "extract_roll": 0,
-            "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
-            "spmv_onehot": 2 * nspmv,
-            "spmm_routed": 2 * (2 * nspmm + nspmm - dense),
-            "expand_routed": 0, "compress_routed": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update({"densify_onehot": 2 * dense,
+                 "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
+                 "spmv_onehot": 2 * nspmv,
+                 "spmm_routed": 2 * (2 * nspmm + nspmm - dense)})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes = {}
@@ -785,8 +801,8 @@ def edge_pairs(dev):
 def fresh(a, rng):
     """A with the same structure and new N(0,1) values."""
     vals = torch.from_numpy(rng.standard_normal(a.nnz).astype(np.float32))
-    return pt.CSR(a.indptr, a.indices, vals.to(a.device), a.shape,
-                  canonical=True)
+    return pt.CSR.from_parts(a.indptr, a.indices, vals.to(a.device), a.shape,
+                             canonical=True)
 
 
 def phase7(dev):
@@ -796,8 +812,8 @@ def phase7(dev):
     from spmm_tpu_torch.ops.kernels import route
 
     err = {"expand_routed": 0.0, "compress_routed": 0.0}
-    pairs = [(name, pt.random(n, n, d, seed=sa, device=dev),
-              pt.random(n, n, d, seed=sb, device=dev))
+    pairs = [(name, pt.random(n, n, d, format="csr", seed=sa, device=dev),
+              pt.random(n, n, d, format="csr", seed=sb, device=dev))
              for name, n, d, sa, sb in SERVE_CELLS] + edge_pairs(dev)
     t0 = time.perf_counter()
     plans = [pt.spgemm_plan(a, b) for _, a, b in pairs]
@@ -885,8 +901,8 @@ def phase8(dev):
     notes = []
     cells = []
     for name, n, d, sa, sb in ESC_CELLS:
-        a = pt.random(n, n, d, seed=sa, device=dev)
-        b = pt.random(n, n, d, seed=sb, device=dev)
+        a = pt.random(n, n, d, format="csr", seed=sa, device=dev)
+        b = pt.random(n, n, d, format="csr", seed=sb, device=dev)
         P, _ = pt.spgemm_nnz_estimate(a, b)
         ref = None
         for what, alg, cf in ESC_RUNS:
@@ -1284,6 +1300,280 @@ def phase11(cells, engines, smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the containers slice: BSR SpMM and csr_densify_mxu (phases 12-13)
+# --------------------------------------------------------------------------
+
+# (name, n, block density, seed): the cells JAX measured bsr_spmm at
+# (spmm_tpu/ops/kernels/bsr_spmm.py:15-23, 128x128 blocks of
+# models.block_sparse, B of 256 columns) and one scaled to fill the card
+BSR_CELLS = [("bsr 4096^2/0.05", 4096, 0.05, 2016),
+             ("bsr 4096^2/0.15", 4096, 0.15, 2017),
+             ("bsr 8192^2/0.02", 8192, 0.02, 2018),
+             ("bsr 32768^2/0.02", 32768, 0.02, 2019)]
+BSR_BLOCK = (128, 128)
+BSR_N = 256
+# the default route of via="bsr_pallas": a CSR re-tiled by tobsr() at
+# (8, 128) (BASELINE.md:59)
+BSR_CSR_CELL = "csr 8192^2/1e-3 -> (8,128)"
+BSR_CSR = (8192, 1e-3, 2012)  # n, density, seed; also the round trips'
+# (n, half-width, seed) of the band of the DIA round trip
+DIA_BAND = (32768, 4, 2020)
+# (name, m, k, density, seed) of csr_densify_mxu: BASELINE.md:20 and :59
+MXU_CELLS = [("mxu 1024^2/0.1", 1024, 1024, 0.1, 2008),
+             ("mxu 8192^2/1e-3", 8192, 8192, 1e-3, 2012)]
+SLICE_KERNELS = ("bsr_spmm", "csr_densify_mxu")
+
+
+def make_bsr_cells(dev):
+    """(name, A as handed to spmm, X) of every BSR cell: the block cells as
+    BSR, the CSR cell as CSR, and the edges (ragged K and N, an empty
+    matrix, a block row with no blocks); X is N(0,1) from seed 2024."""
+    rng = np.random.default_rng(2024)
+
+    def dense(k, n):
+        return torch.from_numpy(
+            rng.standard_normal((k, n)).astype(np.float32)).to(dev)
+
+    cells = [(name, block_sparse(n, n, BSR_BLOCK, bd, seed=seed,
+                                 device=dev).tobsr(BSR_BLOCK),
+              dense(n, BSR_N)) for name, n, bd, seed in BSR_CELLS]
+    n, d, seed = BSR_CSR
+    cells.append((BSR_CSR_CELL, pt.random(n, n, d, format="csr", seed=seed,
+                                          device=dev), dense(n, BSR_N)))
+    cells.append(("edge 40x200 @ 200x70",
+                  pt.random(40, 200, 0.1, format="csr", seed=2, device=dev),
+                  dense(200, 70)))
+    cells.append(("edge empty 16x256", pt.CSR((16, 256), device=dev),
+                  dense(256, 128)))
+    c = pt.random(24, 256, 0.05, seed=5, device=dev)
+    keep = c.row >= 8  # block row 0 at (8, 128) holds no block
+    cells.append(("edge empty block row",
+                  pt.COO((c.data[keep], (c.row[keep], c.col[keep])),
+                         shape=c.shape).tocsr(), dense(256, 128)))
+    return cells
+
+
+def make_mxu_cells(dev):
+    cells = [(name, pt.random(m, k, d, format="csr", seed=seed, device=dev))
+             for name, m, k, d, seed in MXU_CELLS]
+    cells.append(("mxu powerlaw 200x300",
+                  power_law_rows(200, 300, 20, seed=3, device=dev)))
+    cells.append(("mxu empty 16x32", pt.CSR((16, 32), device=dev)))
+    return cells
+
+
+def as_bsr(a):
+    return a if isinstance(a, pt.BSR) else a.tobsr()
+
+
+def within_abs_sum(y, ref, scale) -> float:
+    """Worst |y - ref| / (1e-6 (|A| @ |X|)) of a product: two float32
+    orders of the same L products differ by O(L eps) of the entry's
+    absolute sum, not of the entry or of max|C| (phase 4's bound)."""
+    err = np.abs(y.cpu().double().numpy() - ref)
+    tol = 1e-6 * scale
+    if np.any(err[tol == 0] != 0):
+        raise AssertionError("a product with no terms is not 0")
+    return float(np.max(err[tol > 0] / tol[tol > 0], initial=0.0))
+
+
+def phase12(dev):
+    """The slice's kernels against their plain versions (bsr_spmm within
+    1e-6 of each entry's absolute sum and bitwise on rerun;
+    csr_densify_mxu bitwise, also against toarray()), then the main path
+    with launch counts: spmm(via="bsr_pallas"), spmm(via="bsr"),
+    spmm(A_bsr, X) and A_bsr @ X against scipy's float64 product, and
+    csr_densify_mxu; then full-size COO/CSR/CSC/BSR/DIA round trips against
+    scipy.  Returns (launches, max |kernel - plain|, cells, mxu cells)."""
+    cells, mxu = make_bsr_cells(dev), make_mxu_cells(dev)
+    err = {k: 0.0 for k in SLICE_KERNELS}
+    notes, refs = [], {}
+    for name, a, x in cells:
+        ab, m = as_bsr(a), a.shape[0]
+        args = (ab.indptr, ab.indices, ab.data, x, m)
+        got, again = bsr_spmm(*args), bsr_spmm(*args)
+        want = bsr_spmm_plain(*args)
+        scale = bsr_spmm_plain(ab.indptr, ab.indices, ab.data.abs(),
+                               x.abs(), m).double()
+        if not same_bits(got, again):
+            raise AssertionError(f"bsr_spmm at {name}: rerun not bitwise")
+        diff = (got - want).abs().double()
+        if bool((diff > 1e-6 * scale).any()):
+            raise AssertionError(f"bsr_spmm != plain at {name}: worst "
+                                 f"{float(diff.max())}")
+        # the form rtol 1e-5, atol 1e-6 max|C|, for the record only
+        issue_form = float((diff / (1e-5 * want.abs().double() + 1e-6 * float(
+            want.abs().max()) + 1e-30)).max()) if want.numel() else 0.0
+        err["bsr_spmm"] = max(err["bsr_spmm"], max_abs(got, want))
+        s = a.to_scipy().astype(np.float64)
+        xh = x.cpu().double().numpy()
+        refs[name] = (s @ xh, abs(s) @ np.abs(xh))
+        notes.append(f"{name} nblocks={ab.nblocks} block={ab.blocksize} "
+                     f"|k-plain|={max_abs(got, want):.3g} "
+                     f"(rtol1e-5/atol1e-6max form {issue_form:.3g})")
+        del got, again, want, scale, diff
+    for name, a in mxu:
+        args = (a.indptr, a.indices, a.data, *a.shape)
+        got = csr_densify_mxu(*args)
+        if not (same_bits(got, csr_densify_mxu_plain(*args))
+                and same_bits(got, a.toarray())):
+            raise AssertionError(f"csr_densify_mxu not bitwise at {name}")
+        del got
+    torch.cuda.synchronize()
+    # the main path, counted
+    _build.reset_launches()
+    outs = []
+    for name, a, x in cells:
+        ab = as_bsr(a)
+        outs.append((name, [("via=bsr_pallas", pt.spmm(a, x,
+                                                         via="bsr_pallas")),
+                            ("via=bsr", pt.spmm(a, x, via="bsr")),
+                            ("spmm(A_bsr)", pt.spmm(ab, x)),
+                            ("A_bsr @ X", ab @ x)]))
+    for name, a in mxu:
+        outs.append((name, csr_densify_mxu(a.indptr, a.indices, a.data,
+                                           *a.shape)))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if not all(launches[k] for k in SLICE_KERNELS):
+        raise AssertionError(f"slice launch counts {launches}: expected "
+                             f"{SLICE_KERNELS} launched")
+    worst = 0.0
+    for name, out in outs:
+        if name not in refs:
+            continue
+        for what, y in out:
+            ratio = within_abs_sum(y, *refs[name])
+            if ratio > 1.0:
+                raise AssertionError(f"{what} at {name}: {ratio:.3g} of "
+                                     "1e-6 |A||X|")
+            worst = max(worst, ratio)
+    del outs, refs
+    trips = round_trips(dev)
+    torch.cuda.synchronize()
+    print(f"phase 12: launches {launches}; bsr_spmm within 1e-6 |A||X| of "
+          f"plain and bitwise on rerun: " + "; ".join(notes)
+          + f"; csr_densify_mxu bitwise vs plain and toarray at {len(mxu)} "
+          f"cells; entry points vs scipy f64: worst {worst:.3g} of "
+          f"1e-6 |A||X|; round trips: {trips}", flush=True)
+    return launches, err, cells, mxu
+
+
+def _same_arrays(name, pairs):
+    for what, got, want in pairs:
+        g, w = got.cpu().numpy(), np.asarray(want)
+        if g.shape != w.shape or not np.array_equal(
+                g.view(np.uint8), w.astype(g.dtype).view(np.uint8)):
+            raise AssertionError(f"round trip {name}: {what} differs from "
+                                 "scipy")
+
+
+def round_trips(dev) -> str:
+    """COO -> CSR -> CSC -> BSR -> COO -> CSR at 8192^2/1e-3 and CSR -> DIA
+    -> CSR at a 32768^2 band, each format's arrays bitwise against
+    scipy's conversion of the same matrix."""
+    n, dens, seed = BSR_CSR
+    a = pt.random(n, n, dens, seed=seed, device=dev)
+    s = a.to_scipy()
+    csr, s_csr = a.tocsr(), s.tocsr()
+    csc, s_csc = csr.tocsc(), s.tocsc()
+    bsr, s_bsr = csc.tobsr(), s_csr.tobsr(blocksize=(8, 128))
+    s_bsr.sort_indices()  # scipy stores a block row's blocks as met
+    back = bsr.tocoo().tocsr()
+    for name, got, want in (("csr", csr, s_csr), ("csc", csc, s_csc),
+                            ("bsr", bsr, s_bsr),
+                            ("bsr->coo->csr", back, s_csr)):
+        _same_arrays(name, [("indptr", got.indptr, want.indptr),
+                            ("indices", got.indices, want.indices),
+                            ("data", got.data, want.data)])
+    nb, half, seed = DIA_BAND
+    band = banded(nb, nb, half, seed=seed, device=dev)
+    d, s_d = band.todia(), band.to_scipy().todia()
+    if list(d._offsets) != s_d.offsets.tolist():
+        raise AssertionError("round trip dia: offsets differ from scipy")
+    _same_arrays("dia", [("toarray band", d.tocsr().data,
+                          s_d.tocsr().data),
+                         ("dia->csr indices", d.tocsr().indices,
+                          s_d.tocsr().indices),
+                         ("transpose", d.T.tocsr().data,
+                          s_d.T.tocsr().data)])
+    return (f"COO->CSR->CSC->BSR->COO->CSR at {n}^2/{dens} (nnz {a.nnz}, "
+            f"{bsr.nblocks} blocks) and CSR->DIA->CSR at a {nb}^2 band "
+            f"({len(d._offsets)} diagonals) bitwise against scipy")
+
+
+def phase13(cells, mxu, smi):
+    """CUDA-event medians at the slice's cells: bsr_spmm, its plain version
+    (the via="bsr" route's arithmetic), torch's BSR @ dense, spmm's two BSR
+    routes; the conversions; device busy time and idle share of
+    spmm(via="bsr_pallas"); csr_densify_mxu alone and through its checks,
+    its plain version, torch's CSR to_dense() and densify_onehot."""
+    rows = []
+    for name, a, x in cells:
+        if name.startswith("edge"):
+            continue
+        ab, m = as_bsr(a), a.shape[0]
+        args = (ab.indptr, ab.indices, ab.data, x, m)
+        R, C = ab.blocksize
+        row = {"cell": name, "m": m, "k": a.shape[1], "n": x.shape[1],
+               "blocksize": [R, C], "nblocks": ab.nblocks,
+               "block_rows": ab.indptr.numel() - 1}
+        row["bsr_spmm_ms"] = median_ms(lambda: bsr_spmm(*args))
+        row["bsr_spmm_plain_ms"] = median_ms(lambda: bsr_spmm_plain(*args))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # beta notices
+            tb = torch.sparse_bsr_tensor(ab.indptr.long(), ab.indices.long(),
+                                         ab.data, ab.shape)
+        try:
+            row["library_ms"] = median_ms(lambda: tb @ x)
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_ms"], row["library_error"] = None, str(e)[:120]
+        del tb
+        row["spmm_bsr_pallas_ms"] = median_ms(
+            lambda: pt.spmm(a, x, via="bsr_pallas"))
+        row["spmm_bsr_ms"] = median_ms(lambda: pt.spmm(ab, x, via="bsr"))
+        if name in (BSR_CSR_CELL, BSR_CELLS[-1][0]):
+            csr = a if name == BSR_CSR_CELL else ab.tocsr()
+            row["csr_nnz"] = csr.nnz
+            row["tobsr_ms"] = median_ms(lambda: csr.tobsr((R, C)), 5, 1)
+            row["tocoo_tocsr_ms"] = median_ms(lambda: csr.tocoo().tocsr(),
+                                              5, 1)
+            row["tocsc_ms"] = median_ms(csr.tocsc, 5, 1)
+            # a trace of a few one-kernel calls can come back with no
+            # device events: take a longer one then
+            for calls in (5, 20):
+                busy, top = device_profile(
+                    lambda: pt.spmm(a, x, via="bsr_pallas"), calls=calls)
+                if busy is not None:
+                    break
+            row["bsr_pallas_device_busy_ms"] = busy
+            row["bsr_pallas_idle_share"] = (
+                None if busy is None
+                else 1.0 - busy / row["spmm_bsr_pallas_ms"])
+            row["bsr_pallas_device_top_ms"] = top
+            del csr
+        rows.append(row)
+        torch.cuda.empty_cache()
+        print(f"phase 13 [{smi}]: " + json.dumps(row), flush=True)
+    for name, a in mxu[:2]:
+        m, k = a.shape
+        args = (a.indptr, a.indices, a.data, m, k)
+        row = {"cell": name, "m": m, "k": k, "nnz": a.nnz}
+        row["mxu_ms"] = median_ms(lambda: densify_mxu_launch(*args))
+        row["mxu_wrapper_ms"] = median_ms(lambda: csr_densify_mxu(*args))
+        row["mxu_plain_ms"] = median_ms(lambda: csr_densify_mxu_plain(*args))
+        tc = torch_csr(a.indptr, a.indices, a.data, (m, k))
+        row["mxu_library_ms"] = median_ms(tc.to_dense)
+        row["densify_onehot_ms"] = median_ms(lambda: densify_onehot(
+            *args, with_pattern=False))
+        rows.append(row)
+        del tc
+        torch.cuda.empty_cache()
+        print(f"phase 13 [{smi}]: " + json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -1311,6 +1601,16 @@ def main():
     launches10, err10, engines, blocked_cells = phase10(dev)
     rows11 = phase11(blocked_cells, engines, smi)
     del blocked_cells
+    torch.cuda.empty_cache()
+    launches12, err12, bsr_cells, mxu_cells = phase12(dev)
+    rows13 = phase13(bsr_cells, mxu_cells, smi)
+    del bsr_cells, mxu_cells
+    # the kernels line's times: bsr_spmm at the cell that fills the card,
+    # csr_densify_mxu at 8192^2/1e-3 (256 MB out)
+    t_bsr = next(r for r in rows13 if r["cell"] == BSR_CELLS[-1][0])
+    t_mxu = next(r for r in rows13 if r["cell"] == MXU_CELLS[-1][0])
+    bR, bC = t_bsr["blocksize"]
+    bsr_elems = t_bsr["nblocks"] * bR * bC
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
@@ -1377,6 +1677,22 @@ def main():
                launches7["compress_routed"], err7["compress_routed"],
                t_sv["compress_routed_ms"], t_sv["compress_routed_plain_ms"],
                bound(16 * t_sv["nnz"]), t_sv["compress_library_ms"]),
+        # blocks, B and the (mb R, N) output once, the indices; 2 flops per
+        # stored block element and column of B
+        kernel("bsr_spmm", "bsr_spmm.cu", "bsr_spmm.py:62",
+               launches12["bsr_spmm"], err12["bsr_spmm"],
+               t_bsr["bsr_spmm_ms"], t_bsr["bsr_spmm_plain_ms"],
+               bound(4 * (bsr_elems + t_bsr["k"] * t_bsr["n"]
+                          + t_bsr["block_rows"] * bR * t_bsr["n"])
+                     + 4 * (t_bsr["block_rows"] + 1 + t_bsr["nblocks"]),
+                     2 * bsr_elems * t_bsr["n"]),
+               t_bsr["library_ms"]),
+        kernel("csr_densify_mxu", "densify_mxu.cu", "densify_mxu.py:89",
+               launches12["csr_densify_mxu"], err12["csr_densify_mxu"],
+               t_mxu["mxu_ms"], t_mxu["mxu_plain_ms"],
+               bound(4 * t_mxu["m"] * t_mxu["k"] + 4 * (t_mxu["m"] + 1)
+                     + 8 * t_mxu["nnz"]),
+               t_mxu["mxu_library_ms"]),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

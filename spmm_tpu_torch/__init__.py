@@ -1,15 +1,17 @@
 """spmm_tpu_torch — the PyTorch and CUDA port of spmm_tpu, for NVIDIA Hopper.
 
 It is written beside the JAX package `spmm_tpu`, which stays the reference.
-It carries the SpGEMM paths (a CSR container on an explicit torch device
-with `sum_duplicates` and `sort_indices`, `random`, `spgemm` alg 0/1, the
-blocked dense and the ESC alg 2/3, `spgemm_fixed`, and the fixed-structure
-serving plans `spgemm_plan` / `SpgemmPlan`) and the SpMV/SpMM paths
-(`spmv`, `spmv_plan`, `spmm`, `break_even_density`, and `A @ x`, `A @ X`,
-`x @ A`, `X @ A`), with nine hand-written CUDA kernels built with `nvcc`
-for `sm_90a` on first use.  Its constructors put data on the card unless
-`device="cpu"` is passed; on CPU tensors every kernel runs its plain
-PyTorch version.
+It carries the sparse containers (COO, CSR, CSC, BSR and DIA on an explicit
+torch device, with the conversions between them, the constructors,
+`find`/`tril`/`triu`, element-wise and data ops), the SpGEMM paths
+(`spgemm` alg 0/1, the blocked dense and the ESC alg 2/3, `spgemm_fixed`,
+and the fixed-structure serving plans `spgemm_plan` / `SpgemmPlan`) and the
+SpMV/SpMM paths (`spmv`, `spmv_plan`, `spmm` with its CSR, dense and BSR
+routes, `break_even_density`, and `A @ x`, `A @ X`, `x @ A`, `X @ A` for
+every format), with eleven hand-written CUDA kernels built with `nvcc` for
+`sm_90a` on first use.  Its constructors put data on the card unless
+`device="cpu"` is passed, or the tensors they are given lie elsewhere; on
+CPU tensors every kernel runs its plain PyTorch version.
 It imports torch and never jax.
 """
 
@@ -26,22 +28,49 @@ from spmm_tpu_torch.ops import (  # noqa: F401
     spmv_plan,
 )
 from spmm_tpu_torch.sparse import (  # noqa: F401
+    BSR,
+    COO,
+    CSC,
     CSR,
+    DIA,
     SparseMatrix,
+    bmat,
+    diags,
+    eye,
     from_reference,
+    hstack,
+    identity,
+    issparse,
+    isspmatrix,
+    rand,
     random,
+    spdiags,
+    vstack,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "BSR",
+    "COO",
+    "CSC",
     "CSR",
+    "DIA",
     "SparseMatrix",
     "SpgemmPlan",
+    "bmat",
     "break_even_density",
+    "diags",
+    "eye",
     "from_reference",
+    "hstack",
+    "identity",
+    "issparse",
+    "isspmatrix",
     "matmul",
+    "rand",
     "random",
+    "spdiags",
     "spgemm",
     "spgemm_fixed",
     "spgemm_nnz_estimate",
@@ -49,4 +78,5 @@ __all__ = [
     "spmm",
     "spmv",
     "spmv_plan",
+    "vstack",
 ]

@@ -4,10 +4,11 @@ Ports `spmm_tpu/ops/_primitives.py`'s sorting, reduction and conversion
 set: the pieces the alg1 SpGEMM, SpMV, SpMM, serving and ESC paths need.
 Indices are int32 (`INDEX_DTYPE`), as in the JAX package; flat dense
 offsets are formed in int64, since row*k+col passes 2^31 at large shapes.
-Everything is deterministic on every device (stable sorts, the fixed
-doubling tree of `segsum_tree`), except `segment_sum_rows` on a CUDA
-tensor (a plain version, never on a card path), which adds with atomics.
-None of these functions reads a value back to the host, apart from
+Everything is deterministic on every device (stable sorts, the in-order
+`segment_sum_inorder`, the fixed doubling tree of `segsum_tree`), except
+`segment_sum_rows` on a CUDA tensor (a plain version, never on a card
+path), which adds with atomics.  None of these functions reads a value back
+to the host, apart from `run_stats_sorted`, which reads two counts, and
 `to_host` and `to_device`, which move whole int32 arrays in one copy each:
 sizes that depend on the data are passed in by callers that have read them.
 """
@@ -113,26 +114,85 @@ def compact_positions(flags: torch.Tensor, count: int) -> torch.Tensor:
     return out.scatter_(0, rank, src)[:count]
 
 
-def sum_duplicates_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor,
-                          data_sorted: torch.Tensor, nout: int):
-    """Collapse equal (row, col) runs by summation; `nout` must equal
-    `count_unique_sorted(...)` (read on the host by the caller).
-
-    Each run is summed by the fixed doubling tree of `segsum_tree`, so the
-    result is bitwise the same on every device and on rerun.  The JAX
-    package sums runs in sorted order, one after another
-    (`jax.ops.segment_sum`): the bits agree for runs of one or two entries
-    and may differ in the last place for longer runs."""
-    if row_sorted.numel() == 0:
-        return row_sorted, col_sorted, data_sorted
+def run_stats_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor
+                     ) -> Tuple[int, int]:
+    """(number of distinct (row, col) pairs, length of the longest run of
+    equal pairs) of lex-sorted coordinates, read to the host together (one
+    host sync on a card).  (0, 0) when empty."""
+    n = row_sorted.numel()
+    if n == 0:
+        return 0, 0
     heads = new_group(row_sorted, col_sorted)
-    scanned = segsum_tree(data_sorted, heads)
+    pos = torch.arange(n, device=row_sorted.device)
+    start = torch.cummax(torch.where(heads, pos, 0), 0).values
+    nout, max_run = torch.stack([heads.sum(), (pos - start).max() + 1]
+                                ).tolist()
+    return int(nout), int(max_run)
+
+
+def segment_sum_inorder(values: torch.Tensor, starts: torch.Tensor,
+                        lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Sum of the rows values[starts[s]:starts[s] + lengths[s]] of each
+    segment s, for values of shape (L,) or (L, W); an empty segment is 0.
+
+    Each segment is summed in order from +0.0, ((0 + v0) + v1) + v2 ...,
+    the order in which JAX's `segment_sum` and `.at[].add` add on the CPU,
+    so the bits are the JAX package's.  `max_len` (a host value) bounds
+    every length: the loop takes max_len steps, each one add over all
+    segments, with no atomics, so it is deterministic on every device."""
+    out = torch.zeros((starts.numel(), *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    if values.shape[0] == 0 or starts.numel() == 0:
+        return out
+    starts = starts.long()
+    last = values.shape[0] - 1
+    live_shape = (-1,) + (1,) * (values.dim() - 1)
+    for j in range(max_len):
+        live = (lengths > j).view(live_shape)
+        out = torch.where(live, out + values[(starts + j).clamp_(max=last)],
+                          out)
+    return out
+
+
+def _run_bounds(row_sorted, col_sorted, nout: int):
+    """(first position, length) of each of the nout runs of equal pairs."""
+    heads = new_group(row_sorted, col_sorted)
     first_pos = compact_positions(heads, nout)
     # run i ends where run i + 1 starts (nout is the number of runs)
     end = torch.full((1,), heads.numel(), dtype=first_pos.dtype,
                      device=first_pos.device)
-    last_pos = torch.cat([first_pos[1:], end]) - 1
-    return row_sorted[first_pos], col_sorted[first_pos], scanned[last_pos]
+    return heads, first_pos, torch.cat([first_pos[1:], end]) - first_pos
+
+
+def sum_duplicates_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor,
+                          data_sorted: torch.Tensor, nout: int, max_run: int):
+    """Collapse equal (row, col) runs by summation; `nout` and `max_run`
+    must be `run_stats_sorted(...)` (read on the host by the caller).
+
+    Each run is summed in sorted order from +0.0 (`segment_sum_inorder`),
+    as the JAX package's `jax.ops.segment_sum` does: the bits are JAX's for
+    runs of every length.  `data_sorted` is (L,) or (L, W)."""
+    if row_sorted.numel() == 0:
+        return row_sorted, col_sorted, data_sorted
+    _, first_pos, lengths = _run_bounds(row_sorted, col_sorted, nout)
+    return (row_sorted[first_pos], col_sorted[first_pos],
+            segment_sum_inorder(data_sorted, first_pos, lengths, max_run))
+
+
+def sum_duplicates_sorted_tree(row_sorted: torch.Tensor,
+                               col_sorted: torch.Tensor,
+                               data_sorted: torch.Tensor, nout: int):
+    """`sum_duplicates_sorted` with each run summed by the fixed doubling
+    tree of `segsum_tree`: ESC's compression, where the JAX package uses
+    the tree too, so the bits are JAX's and `native/spgemm_cross_check.cpp`'s
+    (the in-order sum and the tree differ in the last place for runs of
+    three or more entries)."""
+    if row_sorted.numel() == 0:
+        return row_sorted, col_sorted, data_sorted
+    heads, first_pos, lengths = _run_bounds(row_sorted, col_sorted, nout)
+    scanned = segsum_tree(data_sorted, heads)
+    return (row_sorted[first_pos], col_sorted[first_pos],
+            scanned[first_pos + lengths - 1])
 
 
 def has_canonical_format_sorted(row: torch.Tensor, col: torch.Tensor
@@ -214,6 +274,12 @@ def to_device(device, *arrays):
     flat = [np.asarray(x, np.int32).ravel() for x in arrays]
     buf = torch.from_numpy(np.concatenate(flat)).to(device)
     return torch.split(buf, [x.size for x in flat])
+
+
+def plus_zero(x: torch.Tensor) -> torch.Tensor:
+    """x + 0: the values JAX stores where it adds into zeros
+    (`zeros.at[i].add(x)`), which differ from x only at -0.0 (+0.0)."""
+    return x if x.dtype == torch.bool else x + 0
 
 
 def csr_to_dense_canonical(indptr: torch.Tensor, indices: torch.Tensor,

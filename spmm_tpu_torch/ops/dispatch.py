@@ -4,11 +4,14 @@ Port of `spmm_tpu/ops/dispatch.py` (`matmul`, `rmatmul`,
 `break_even_density`, `_dense_fits`), following the reference table of
 `csr_matrix.__mul__`:
 
-    CSR @ CSR        -> sum_duplicates both -> spgemm
-    CSR @ 1-D dense  -> spmv
-    CSR @ 2-D dense  -> spmm (dense when A's density reaches the
-                        break-even curve and the dense operands fit)
+    A @ B (sparse)   -> tocsr + sum_duplicates both -> spgemm
+    A @ 1-D dense    -> spmv (of A.tocsr())
+    A @ 2-D dense    -> spmm of A.tocsr() (dense when A's density reaches
+                        the break-even curve and the dense operands fit)
     x @ A, X @ A     -> spmv(A, x, transa=True), spmm(A, X.T, transa=True).T
+
+for A of any format (COO, CSR, CSC, BSR, DIA): as in JAX, a BSR @ dense
+takes the CSR path; its own routes are `spmm(via="bsr"/"bsr_pallas")`.
 
 The break-even curve is the JAX package's hard-coded fallback only.  Its
 `.break_even.json` was measured on a TPU and is not read; an H100

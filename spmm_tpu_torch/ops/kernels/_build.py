@@ -38,7 +38,8 @@ PTXAS_REPORT = []
 LAUNCHES = {"densify_onehot": 0, "densify_onehot_pattern": 0,
             "extract_roll": 0, "spmv_binned": 0,
             "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0,
-            "expand_routed": 0, "compress_routed": 0}
+            "expand_routed": 0, "compress_routed": 0, "bsr_spmm": 0,
+            "csr_densify_mxu": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "spmm_expand_routed": (_P, _P, _P, _P, _L, _P),
     # c, pos, prev, out, cap, alpha, beta, stream
     "spmm_compress_routed": (_P, _P, _P, _P, _L, _F, _F, _P),
+    # indptr, indices, blocks, b, out, mb, R, C, m, K, N, stream
+    "spmm_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
+    # indptr, indices, data, out, m, k, stream
+    "spmm_densify_mxu": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 

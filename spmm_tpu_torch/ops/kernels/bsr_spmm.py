@@ -1,0 +1,105 @@
+"""C = A_bsr @ B: block-sparse (BSR) times dense, float32.
+
+Port of `spmm_tpu/ops/kernels/bsr_spmm.py` (`bsr_spmm_pallas` and its eager
+wrapper `spmm_bsr_pallas`, here `bsr_spmm` and `spmm_bsr`).  On a CUDA
+tensor `bsr_spmm` launches the hand-written kernel of `csrc/bsr_spmm.cu`
+(one CTA per block row and 64 columns of B, the row's blocks walked in
+stored order, the sum kept in registers, fmaf in float32); on a CPU tensor
+it runs `bsr_spmm_plain`.  The kernel masks ragged K and N itself, so the
+wrapper pads nothing (the TPU wrapper pads K to C and N to the tile, then
+cuts back).
+
+`bsr_spmm_plain` is JAX's `_bsr_spmm` (`spmm_tpu/ops/spmm.py`, XLA's
+`dot_general` and `segment_sum`, no Pallas): the B slab of every block
+gathered, one `torch.bmm` in IEEE float32 (TF32 off), and each block row's
+partial products summed in stored order by
+`_primitives.segment_sum_inorder` (no atomics).  `spmm(via="bsr")` takes it
+on every device, as JAX takes `_bsr_spmm`.  Its order of additions differs
+from the kernel's (cuBLAS against one fmaf chain), so the two agree within
+a tolerance, not bitwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spmm_tpu_torch.ops import _primitives as prim
+from spmm_tpu_torch.ops.kernels import _build
+from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
+
+
+def _check(indptr, indices, blocks, b, m: int) -> None:
+    for name, t, dtype, dim in (("indptr", indptr, prim.INDEX_DTYPE, 1),
+                                ("indices", indices, prim.INDEX_DTYPE, 1),
+                                ("blocks", blocks, torch.float32, 3),
+                                ("b", b, torch.float32, 2)):
+        if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"bsr_spmm: {name} must be a contiguous {dim}-D "
+                             f"{dtype} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != blocks.device:
+            raise ValueError(f"bsr_spmm: {name} is on {t.device}, blocks on "
+                             f"{blocks.device}")
+    if blocks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bsr_spmm: unsupported device {blocks.device}")
+    mb = indptr.numel() - 1
+    R = blocks.shape[1]
+    if indices.numel() != blocks.shape[0]:
+        raise ValueError("bsr_spmm: indices and blocks differ in length")
+    if R == 0 or mb != -(-m // R):
+        raise ValueError(f"bsr_spmm: {mb} block rows of {R} rows do not "
+                         f"cover exactly {m} rows")
+
+
+def bsr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                   blocks: torch.Tensor, b: torch.Tensor, m: int
+                   ) -> torch.Tensor:
+    """Plain PyTorch version, on any device: (m, N) = A_bsr @ b.  One host
+    read (the most blocks in a block row)."""
+    nblocks, R, C = blocks.shape
+    mb = indptr.numel() - 1
+    K, N = b.shape
+    if nblocks == 0:
+        return torch.zeros((m, N), dtype=blocks.dtype, device=blocks.device)
+    pad = (-K) % C
+    b_blocked = torch.nn.functional.pad(b, (0, 0, 0, pad)).view(-1, C, N)
+    slabs = b_blocked[indices.long()]  # (nblocks, C, N)
+    with _ieee_fp32_matmul():
+        partial = torch.bmm(blocks, slabs)  # (nblocks, R, N)
+    counts = indptr[1:] - indptr[:-1]
+    sums = prim.segment_sum_inorder(partial.view(nblocks, R * N),
+                                    indptr[:-1], counts, int(counts.max()))
+    return sums.view(mb * R, N)[:m]
+
+
+def bsr_spmm(indptr: torch.Tensor, indices: torch.Tensor,
+             blocks: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
+    """(m, N) float32 = A_bsr @ b, with A's block rows (indptr, mb + 1),
+    block column ids (indices) and blocks (nblocks, R, C), and b (K, N)
+    row-major; each output block row is the sum over its blocks, in stored
+    order, of block @ b[bcol*C:(bcol+1)*C]."""
+    _check(indptr, indices, blocks, b, m)
+    if blocks.device.type == "cpu":
+        return bsr_spmm_plain(indptr, indices, blocks, b, m)
+    nblocks, R, C = blocks.shape
+    K, N = b.shape
+    if nblocks == 0 or N == 0:
+        # no launch, as in JAX (a zero-size grid is a launch error)
+        return torch.zeros((m, N), dtype=torch.float32, device=b.device)
+    out = torch.empty((m, N), dtype=torch.float32, device=b.device)
+    lib = _build.library()
+    with torch.cuda.device(b.device):
+        err = lib.spmm_bsr_spmm(
+            indptr.data_ptr(), indices.data_ptr(), blocks.data_ptr(),
+            b.data_ptr(), out.data_ptr(), indptr.numel() - 1, R, C, m, K, N,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "bsr_spmm")
+    _build.LAUNCHES["bsr_spmm"] += 1
+    return out
+
+
+def spmm_bsr(a_bsr, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with A a BSR and B a float32 (K, N) tensor on A's device
+    (the eager wrapper of the TPU kernel)."""
+    return bsr_spmm(a_bsr.indptr, a_bsr.indices, a_bsr.data, b.contiguous(),
+                    a_bsr.shape[0])

@@ -115,8 +115,8 @@ class SpgemmPlan:
         from spmm_tpu_torch.sparse.csr import CSR
 
         vals = self.values(a_data, b_data, alpha)
-        return CSR(self.indptr, self.indices, vals, self.shape,
-                   canonical=True)
+        return CSR._wrap(self.indptr, self.indices, vals, self.shape,
+                         canonical=True)
 
     def values(self, a_data, b_data, alpha=1.0) -> torch.Tensor:
         """Just the output value array (CSR order): the minimal per-call

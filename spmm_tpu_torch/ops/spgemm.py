@@ -105,7 +105,7 @@ def _spgemm_alg1(a, b, alpha, precision: str = "highest"):
     c, mask, nnz_dev = _alg1_dense_compute(a, b, alpha, precision)
     nnz = int(nnz_dev)  # host sync: the analogue of spMatGetSize
     indptr, col, data = _dense_extract(c, mask, nnz)
-    return CSR(indptr, col, data, (m, n), canonical=True)
+    return CSR._wrap(indptr, col, data, (m, n), canonical=True)
 
 
 def _alg1_fixed(a, b, alpha, cap: int, precision: str = "highest"):
@@ -224,10 +224,10 @@ def _esc_expand_sort_count(a_rows, a_indices, a_data,
 def _empty_csr(m: int, n: int, dtype, device):
     from spmm_tpu_torch.sparse.csr import CSR
 
-    return CSR(torch.zeros(m + 1, dtype=INDEX_DTYPE, device=device),
-               torch.zeros(0, dtype=INDEX_DTYPE, device=device),
-               torch.zeros(0, dtype=dtype, device=device), (m, n),
-               canonical=True)
+    return CSR._wrap(torch.zeros(m + 1, dtype=INDEX_DTYPE, device=device),
+                     torch.zeros(0, dtype=INDEX_DTYPE, device=device),
+                     torch.zeros(0, dtype=dtype, device=device), (m, n),
+                     canonical=True)
 
 
 def _spgemm_alg2_esc(a, b, alpha, joined: bool = False):
@@ -248,7 +248,7 @@ def _spgemm_alg2_esc(a, b, alpha, joined: bool = False):
     nnz_c = int(nnz_dev)  # host sync (spMatGetSize)
     indptr, out_col, out_val = _compress(row_s, col_s, val_s, alpha, nnz_c,
                                          m)
-    return CSR(indptr, out_col, out_val, (m, n), canonical=True)
+    return CSR._wrap(indptr, out_col, out_val, (m, n), canonical=True)
 
 
 # ===========================================================================
@@ -273,7 +273,7 @@ def _chunk_esc(a_indices, a_data, a_rows, b_indptr, b_indices, b_data,
 def _chunk_extract(row_s, col_s, val_s, alpha, nnz_c: int):
     """(row, col, alpha * sum) of each of the nnz_c runs of sorted
     triplets, each run summed with the fixed doubling tree."""
-    r, c, v = prim.sum_duplicates_sorted(row_s, col_s, val_s, nnz_c)
+    r, c, v = prim.sum_duplicates_sorted_tree(row_s, col_s, val_s, nnz_c)
     return r, c, v * prim.f32(alpha)
 
 
@@ -359,7 +359,7 @@ def _spgemm_alg3_esc(a, b, alpha, chunk_fraction: float,
         return _empty_csr(m, n, a.dtype, a.device)
     indptr, col, val = _alg3_esc_compute(a, b, chunk_meta, counts_h, alpha,
                                          m, n, total)
-    return CSR(indptr, col, val, (m, n), canonical=True)
+    return CSR._wrap(indptr, col, val, (m, n), canonical=True)
 
 
 # ===========================================================================
@@ -446,7 +446,7 @@ def spgemm_fixed(a, b, alpha=1.0, cap: Optional[int] = None,
             f"spgemm_fixed: capacity {cap} is smaller than the true output "
             f"nnz {nnz_true}; rerun with cap >= {nnz_true} (or cap=None for "
             "exact sizing)")
-    return CSR(indptr, col, data, (m, n), canonical=True), nnz
+    return CSR._wrap(indptr, col, data, (m, n), canonical=True), nnz
 
 
 def spgemm_nnz_estimate(a, b) -> Tuple[int, int]:

@@ -228,7 +228,7 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
             a_indptr, a_indptr_h, a.indices, a.data, b.indptr, b.indices,
             b.data, mask, alpha, m, k, n, T, nnz,
             [int(c) for c in tilec_h])
-        return CSR(indptr, cols, vals, (m, n), canonical=True)
+        return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
     del mask  # the scan engine recounts each tile
     cap_tile = _round_up(int(tilec_h.max()), 8)
     if verbose:
@@ -236,7 +236,7 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
     indptr, cols, vals = _alg2_compute(
         a_indptr, a.indices, a.data, b.indptr, b.indices, b.data, alpha,
         tilec_h, m, m_pad, k, n, T, cap_tile, nnz)
-    return CSR(indptr, cols, vals, (m, n), canonical=True)
+    return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
 
 
 # ===========================================================================
@@ -415,7 +415,7 @@ def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
     vals = _alg3_compute_group(blocks, alpha, n, n_b, T, P, G, nnz,
                                tile_caps)
     indptr, indices = prim.to_device(a.device, indptr_h, indices_h)
-    return CSR(indptr, indices, vals, (m, n), canonical=True)
+    return CSR._wrap(indptr, indices, vals, (m, n), canonical=True)
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +486,7 @@ def _spgemm_alg3_unrolled(a, b, host, alpha, n_b: int, P: int, T: int,
     cols, vals = _alg3_compute_unrolled(blocks, blockc, alpha, n, n_b, T, P,
                                         cap_blk, nnz)
     (indptr,) = prim.to_device(a.device, indptr_h)
-    return CSR(indptr, cols, vals, (m, n), canonical=True)
+    return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +548,7 @@ def _spgemm_alg3_scan3(a, b, host, alpha, n_b: int, P: int, T: int,
                                                gather)
     vals = _alg3_compute_scan3(blocks, blockc, prod_off, gather_d, alpha, T,
                                P, cap_blk, nnz)
-    return CSR(indptr, indices, vals, (m, n), canonical=True)
+    return CSR._wrap(indptr, indices, vals, (m, n), canonical=True)
 
 
 # ---------------------------------------------------------------------------
@@ -685,7 +685,7 @@ def _spgemm_alg3_scan2(a, b, host, alpha, n_b: int, P: int, T: int,
     cap_blk = max(_round_up(int(blockc_h.max()), 8), 8)
     indptr, cols, vals = _alg3_compute(blocks, rowc, blockc_h, alpha, m, n,
                                        n_b, T, P, cap_blk, nnz)
-    return CSR(indptr, cols, vals, (m, n), canonical=True)
+    return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
 
 
 # ---------------------------------------------------------------------------

@@ -9,23 +9,29 @@ Port of `spmm_tpu/ops/spmm.py`.  Paths:
     serving plan's row order (ignored with `transa`, as in JAX);
   * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`
     with TF32 off;
-  * `via="bsr"` / `"bsr_pallas"`: raise NotImplementedError until the BSR
-    container is ported (ROADMAP §1.8).
+  * `via="bsr_pallas"`: the hand-written BSR kernel `bsr_spmm`
+    (`csrc/bsr_spmm.cu`); a non-BSR A is re-tiled with `tobsr()` first;
+  * `via="bsr"`, or a BSR A with any other `via`: JAX's `_bsr_spmm` route,
+    which is XLA's `dot_general` and `segment_sum` there, no Pallas: here
+    `bsr_spmm_plain`, one `torch.bmm` in IEEE f32 and the in-order
+    block-row sum, on every device.
 
-`transa` forms the CSR of Aᵀ by a stable sort (`CSR.transpose`), so the
-transposed product has no atomics either.  B is row-major; a non-contiguous
-tensor (such as `X.T`) is copied contiguous first.  `alpha` multiplies the
-result after the sum.  Only float32 is ported (ROADMAP §1.3).
+`transa` transposes A first (a CSR by a stable sort, `CSR.transpose`, so
+the transposed product has no atomics either; a BSR through CSR, to blocks
+of (C, R)).  B is row-major; a non-contiguous tensor (such as `X.T`) is
+copied contiguous first.  `alpha` multiplies the result after the sum.
+Only float32 is ported (ROADMAP §1.3).
 """
 
 from __future__ import annotations
 
 import torch
 
+from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_plain, spmm_bsr
 from spmm_tpu_torch.ops.kernels.spmv_routed import (spmm_routed,
                                                     spmv_routed_plan)
 from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
-from spmm_tpu_torch.ops.spmv import _check_matrix, _densify, _scale, as_dense
+from spmm_tpu_torch.ops.spmv import _check_sparse, _densify, _scale, as_dense
 
 
 def _csr_spmm(a, b: torch.Tensor) -> torch.Tensor:
@@ -42,11 +48,13 @@ def _dense_spmm(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
          plan=None):
-    """C = alpha * op(A) @ B with A sparse and B dense 2-D.
+    """C = alpha * op(A) @ B with A sparse (any format) and B dense 2-D.
 
     `plan` may carry a routed plan from `spmv_plan(a)`, the SpMM analogue of
     cuSPARSE's descriptor reuse."""
-    a = _check_matrix(a, "spmm")
+    from spmm_tpu_torch.sparse.bsr import BSR
+
+    a = _check_sparse(a, "spmm")
     b = as_dense(b, a, "spmm")
     if b.dim() != 2:
         raise ValueError("spmm expects a 2-D dense matrix B")
@@ -58,9 +66,12 @@ def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
             and plan[0] == "routed" and not transa):
         return _scale(spmm_routed(b, plan[1]), alpha)
     if via == "dense":
-        return _scale(_dense_spmm(_densify(a.sum_duplicates()), b), alpha)
-    if via in ("bsr", "bsr_pallas"):
-        raise NotImplementedError(
-            f"spmm via={via!r} needs the BSR container and `tobsr`, not "
-            "ported yet (ROADMAP §1.8, containers; kernel bsr_spmm_pallas)")
-    return _scale(_csr_spmm(a.sum_duplicates(), b), alpha)
+        return _scale(_dense_spmm(_densify(a.tocsr().sum_duplicates()), b),
+                      alpha)
+    if via in ("bsr", "bsr_pallas") or isinstance(a, BSR):
+        ab = a if isinstance(a, BSR) else a.tobsr()
+        if via == "bsr_pallas":
+            return _scale(spmm_bsr(ab, b), alpha)
+        return _scale(bsr_spmm_plain(ab.indptr, ab.indices, ab.data, b,
+                                     a.shape[0]), alpha)
+    return _scale(_csr_spmm(a.tocsr().sum_duplicates(), b), alpha)

@@ -38,11 +38,15 @@ _TAGS = ("routed", "binned", "onehot")
 
 def _check_matrix(a, what: str):
     """A as a CSR of float32 values."""
+    return _check_sparse(a, what).tocsr()
+
+
+def _check_sparse(a, what: str):
+    """A, a sparse matrix of any format holding float32 values."""
     from spmm_tpu_torch.sparse.base import issparse
 
     if not issparse(a):
         raise TypeError(f"{what} expects a sparse matrix A")
-    a = a.tocsr()
     if a.dtype != torch.float32:
         raise NotImplementedError(
             f"{what} of a {a.dtype} matrix: only float32 is ported yet "

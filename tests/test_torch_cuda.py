@@ -119,8 +119,8 @@ def test_wrappers_reject_mixed_devices(dev):
     (32, 32, 32, 0.9),        # full output
 ])
 def test_spgemm_on_card_matches_cpu_path(dev, m, k, n, density):
-    a = pt.random(m, k, density, seed=1, device="cpu")
-    b = pt.random(k, n, density, seed=2, device="cpu")
+    a = pt.random(m, k, density, format="csr", seed=1, device="cpu")
+    b = pt.random(k, n, density, format="csr", seed=2, device="cpu")
     want = pt.spgemm(a, b)
     before = dict(_build.LAUNCHES)
     got = pt.spgemm(a.to(dev), b.to(dev))
@@ -138,8 +138,8 @@ def test_spgemm_on_card_matches_cpu_path(dev, m, k, n, density):
 
 @pytest.mark.gpu
 def test_spgemm_fixed_on_card_pads(dev):
-    a = pt.random(40, 72, 0.2, seed=3, device=dev)
-    b = pt.random(72, 56, 0.2, seed=4, device=dev)
+    a = pt.random(40, 72, 0.2, format="csr", seed=3, device=dev)
+    b = pt.random(72, 56, 0.2, format="csr", seed=4, device=dev)
     exact = pt.spgemm(a, b)
     got, nnz = pt.spgemm_fixed(a, b, cap=exact.nnz + 9)
     assert int(nnz) == exact.nnz and got.nnz == exact.nnz + 9
@@ -280,7 +280,7 @@ def test_spmv_wrappers_reject_other_devices(dev):
     (lambda a, x, X: X[:40].T @ a, {"spmm_routed": 1}),
 ])
 def test_entry_points_launch_kernels_and_rerun_bitwise(dev, call, counts):
-    a = pt.random(40, 70, 0.2, seed=11, device=dev)
+    a = pt.random(40, 70, 0.2, format="csr", seed=11, device=dev)
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal(70).astype(np.float32)).to(dev)
     X = torch.from_numpy(rng.standard_normal((70, 33)).astype(
@@ -297,11 +297,11 @@ def test_entry_points_launch_kernels_and_rerun_bitwise(dev, call, counts):
 
 @pytest.mark.gpu
 def test_spmv_plan_on_card(dev):
-    a = pt.random(50, 60, 0.1, seed=12, device=dev)
+    a = pt.random(50, 60, 0.1, format="csr", seed=12, device=dev)
     tag, p = pt.spmv_plan(a)
     assert tag == "routed" and p.slack >= 1.0
     assert pt.spmv_plan(a, effort="fast")[0] == "binned"
-    assert pt.spmv_plan(pt.random(5, 5, 0.0, device=dev)) is None
+    assert pt.spmv_plan(pt.random(5, 5, 0.0, format="csr", device=dev)) is None
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +385,8 @@ def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta):
 @pytest.mark.parametrize("m,k,n,density", [(40, 72, 56, 0.2),
                                            (256, 256, 256, 0.1)])
 def test_spgemm_plan_on_card(dev, m, k, n, density):
-    a = pt.random(m, k, density, seed=5, device="cpu")
-    b = pt.random(k, n, density, seed=6, device="cpu")
+    a = pt.random(m, k, density, format="csr", seed=5, device="cpu")
+    b = pt.random(k, n, density, format="csr", seed=6, device="cpu")
     want = pt.spgemm_plan(a, b)(a.data, b.data)  # CPU: plain versions
     ad, bd = a.to(dev), b.to(dev)
     plan = pt.spgemm_plan(ad, bd)
@@ -418,8 +418,8 @@ def test_spgemm_plan_on_card(dev, m, k, n, density):
 @pytest.mark.gpu
 @pytest.mark.parametrize("alg,cf", [(2, 0.2), (3, 1.0), (3, 0.2), (3, 0.05)])
 def test_esc_on_card_bitwise_vs_cpu(dev, alg, cf):
-    a = pt.random(300, 200, 0.05, seed=7, device="cpu")
-    b = pt.random(200, 250, 0.05, seed=8, device="cpu")
+    a = pt.random(300, 200, 0.05, format="csr", seed=7, device="cpu")
+    b = pt.random(200, 250, 0.05, format="csr", seed=8, device="cpu")
     want = pt.spgemm(a, b, alpha=1.5, alg=alg, chunk_fraction=cf, impl="esc")
     got = pt.spgemm(a.to(dev), b.to(dev), alpha=1.5, alg=alg,
                     chunk_fraction=cf, impl="esc")
@@ -468,8 +468,8 @@ def test_host_syncs_on_card(dev):
     the JAX package does; `sum_duplicates` once."""
     from torch_port_helpers import unsorted_csr_arrays
 
-    a = pt.random(200, 150, 0.05, seed=1, device=dev)
-    b = pt.random(150, 180, 0.05, seed=2, device=dev)
+    a = pt.random(200, 150, 0.05, format="csr", seed=1, device=dev)
+    b = pt.random(150, 180, 0.05, format="csr", seed=2, device=dev)
     plan = pt.spgemm_plan(a, b)
     plan(a.data, b.data)
     assert _host_syncs(lambda: plan(a.data, b.data)) == 0
@@ -496,7 +496,7 @@ def test_entry_points_default_to_the_card(dev):
 
     indptr, indices, data = csr_arrays(8, 8, 0.5, seed=3)
     s = sp.csr_matrix((data, indices, indptr), shape=(8, 8))
-    for a in (pt.random(8, 8, 0.5), pt.from_reference(s),
+    for a in (pt.random(8, 8, 0.5, format="csr"), pt.from_reference(s),
               pt.CSR.from_scipy(s), pt.CSR.from_parts(indptr, indices, data,
                                                       (8, 8)),
               power_law_rows(64, 64, 4, seed=0)):
@@ -579,8 +579,8 @@ def test_blocked_engines_on_card(dev, cf, monkeypatch):
     kernels all launched."""
     from spmm_tpu_torch.ops import spgemm_blocked as bl
 
-    a = pt.random(300, 200, 0.1, seed=21, device=dev)
-    b = pt.random(200, 260, 0.1, seed=22, device=dev)
+    a = pt.random(300, 200, 0.1, format="csr", seed=21, device=dev)
+    b = pt.random(200, 260, 0.1, format="csr", seed=22, device=dev)
     _build.reset_launches()
     c2 = pt.spgemm(a, b, alpha=-2.5, alg=2)
     assert all(_build.LAUNCHES[x] for x in
@@ -605,10 +605,10 @@ def test_blocked_host_syncs_do_not_grow_with_blocks(dev, monkeypatch):
     numbers of tiles and panels, for each engine."""
     from spmm_tpu_torch.ops import spgemm_blocked as bl
 
-    small = (pt.random(200, 150, 0.1, seed=1, device=dev),
-             pt.random(150, 180, 0.1, seed=2, device=dev))
-    large = (pt.random(700, 300, 0.05, seed=3, device=dev),
-             pt.random(300, 650, 0.05, seed=4, device=dev))
+    small = (pt.random(200, 150, 0.1, format="csr", seed=1, device=dev),
+             pt.random(150, 180, 0.1, format="csr", seed=2, device=dev))
+    large = (pt.random(700, 300, 0.05, format="csr", seed=3, device=dev),
+             pt.random(300, 650, 0.05, format="csr", seed=4, device=dev))
     calls = [("alg2", lambda a, b: pt.spgemm(a, b, alg=2))]
     calls += [(e, lambda a, b, e=e: bl.spgemm_alg3_blocked(
         a, b, 1.0, 0.2, engine=e)) for e in bl._ENGINES]
@@ -621,3 +621,138 @@ def test_blocked_host_syncs_do_not_grow_with_blocks(dev, monkeypatch):
     monkeypatch.setattr(bl, "_ALG2_MAX_UNROLL_TILES", 1)
     assert (_host_syncs(lambda: pt.spgemm(*small, alg=2))
             == _host_syncs(lambda: pt.spgemm(*large, alg=2)))
+
+
+# ---------------------------------------------------------------------------
+# the containers slice: bsr_spmm, csr_densify_mxu, the in-order sum
+# ---------------------------------------------------------------------------
+
+
+def _bsr_on(dev, m, n, density, blocksize, seed):
+    a = pt.random(m, n, density, format="csr", seed=seed, device=dev)
+    return a, a.tobsr(blocksize=blocksize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,density,blocksize,k", [
+    (64, 256, 0.05, (8, 128), 128),
+    (64, 256, 0.05, (16, 128), 128),
+    (40, 200, 0.1, (8, 128), 70),     # ragged K and N: the kernel masks
+    (37, 260, 0.05, (2, 2), 33),
+    (300, 300, 0.05, (130, 3), 65),   # R past one 128-row chunk
+    (512, 512, 0.3, (128, 128), 256),
+])
+def test_bsr_spmm_kernel_vs_plain(dev, m, n, density, blocksize, k):
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+
+    a, ab = _bsr_on(dev, m, n, density, blocksize, seed=m + n)
+    b = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (n, k)).astype(np.float32)).to(dev)
+    args = (ab.indptr, ab.indices, ab.data, b, m)
+    before = _build.LAUNCHES["bsr_spmm"]
+    got = bsr_spmm(*args)
+    assert _build.LAUNCHES["bsr_spmm"] == before + 1
+    want = bsr_spmm_plain(*args)
+    # two float32 orders of the same sums: within 1e-6 of each entry's
+    # absolute sum (|A| @ |B|), and bitwise on rerun
+    scale = bsr_spmm_plain(ab.indptr, ab.indices, ab.data.abs(), b.abs(), m)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    assert_bitwise(bsr_spmm(*args), got)
+
+
+@pytest.mark.gpu
+def test_bsr_spmm_empty_launches_nothing(dev):
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import spmm_bsr
+
+    ab = pt.CSR((16, 256), device=dev).tobsr()
+    before = dict(_build.LAUNCHES)
+    out = spmm_bsr(ab, torch.ones(256, 8, device=dev))
+    assert _build.LAUNCHES == before
+    assert out.shape == (16, 8) and not out.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,density", [
+    (1024, 1024, 0.1), (100, 130, 0.15), (300, 257, 0.05),
+    (33, 2000, 0.3), (5000, 12, 0.2)])
+def test_densify_mxu_kernel_bitwise_vs_plain(dev, m, k, density):
+    from spmm_tpu_torch.ops.kernels.densify_mxu import (
+        csr_densify_mxu, csr_densify_mxu_plain)
+
+    a = pt.random(m, k, density, format="csr", seed=m, device=dev)
+    args = (a.indptr, a.indices, a.data, m, k)
+    before = _build.LAUNCHES["csr_densify_mxu"]
+    got = csr_densify_mxu(*args)
+    assert _build.LAUNCHES["csr_densify_mxu"] == before + 1
+    torch.cuda.synchronize()
+    assert_bitwise(got, csr_densify_mxu_plain(*args))
+    assert_bitwise(got, a.toarray())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["csr", "bsr", "coo"])
+def test_spmm_bsr_routes_on_card_vs_scipy(dev, fmt):
+    a = pt.random(256, 384, 0.03, format=fmt, seed=5, device=dev)
+    x = np.random.default_rng(6).standard_normal((384, 40)).astype(
+        np.float32)
+    s = a.to_scipy().astype(np.float64)
+    want = s @ x.astype(np.float64)
+    scale = abs(s) @ np.abs(x).astype(np.float64)
+    before = _build.LAUNCHES["bsr_spmm"]
+    for got in (pt.spmm(a, x, via="bsr_pallas"), pt.spmm(a, x, via="bsr"),
+                a.tobsr() @ torch.from_numpy(x).to(dev)):
+        err = np.abs(got.cpu().double().numpy() - want)
+        assert (err <= 1e-6 * scale + 1e-30).all()
+    assert _build.LAUNCHES["bsr_spmm"] == before + 1
+
+
+@pytest.mark.gpu
+def test_in_order_sum_on_card_bitwise_vs_cpu(dev):
+    from spmm_tpu_torch.ops import _primitives as prim
+    from torch_port_helpers import coo_arrays
+
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal((5000, 7)).astype(np.float32)
+    lengths = rng.integers(0, 9, 800)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    for v in (vals[:, 0], vals):
+        args = (torch.from_numpy(v), torch.from_numpy(starts),
+                torch.from_numpy(lengths), int(lengths.max()))
+        want = prim.segment_sum_inorder(*args)
+        got = prim.segment_sum_inorder(*(t.to(dev) if torch.is_tensor(t)
+                                         else t for t in args))
+        assert_bitwise(got, want)
+    row, col, data = coo_arrays(60, 50, 0.4, 2)
+    row, col = row % 7, col % 5  # runs of up to dozens of duplicates
+    want = pt.COO((data, (row, col)), shape=(60, 50), device="cpu")
+    got = pt.COO((data, (row, col)), shape=(60, 50), device=dev)
+    for g, w in ((got.sum_duplicates(), want.sum_duplicates()),
+                 (got.tocsr(), want.tocsr()), (got.tocsc(), want.tocsc())):
+        for name in ("data", "indices" if g.format != "coo" else "row"):
+            assert_bitwise(getattr(g, name), getattr(w, name))
+    assert_bitwise(got.sum(axis=0), want.sum(axis=0))
+
+
+@pytest.mark.gpu
+def test_new_formats_default_to_the_card(dev):
+    from spmm_tpu_torch.models import banded, block_sparse, uniform
+
+    dense = np.eye(6, 8, dtype=np.float32)
+    row, col = np.array([0, 1]), np.array([1, 2])
+    data = np.array([1.0, 2.0], np.float32)
+    made = [pt.COO((data, (row, col)), shape=(4, 4)), pt.COO(dense),
+            pt.CSC(dense), pt.CSR(dense), pt.CSR((3, 3)), pt.BSR(
+                pt.CSR(dense), blocksize=(2, 4)),
+            pt.DIA((dense[:2], [0, 1]), shape=(6, 8)), pt.eye(5),
+            pt.identity(4, format="csr"), pt.diags([data], [1]),
+            pt.spdiags(dense[:2], [0, 1], 6, 8)]
+    made += [pt.random(20, 20, 0.2, format=f) for f in
+             ("coo", "csr", "csc", "bsr", "dia")]
+    made += [block_sparse(64, 64, (8, 8), 0.2), banded(10, 10, 1),
+             uniform(10, 10, 0.3)]
+    for a in made:
+        assert a.device == dev, a
+    # tensors keep their device
+    assert pt.COO((torch.from_numpy(data), (row, col)),
+                  shape=(4, 4)).device == torch.device("cpu")

@@ -5,10 +5,9 @@ Every input is made with numpy (`torch_port_helpers`) and handed to both
 packages.  ESC values are compared BITWISE: each partial product is one
 f32 multiply, the lexsort is stable (its permutation is unique), and each
 duplicate run is summed by the same fixed doubling tree
-(`_primitives.segsum_tree`).  `sum_duplicates` is the one exception: JAX
-sums runs in order (`segment_sum`), the port with the tree, so the bits
-agree for runs of at most two entries and longer runs are held to
-rtol 1e-6.
+(`_primitives.segsum_tree`).  `sum_duplicates` sums each run in stored
+order from +0.0, as JAX's `segment_sum` does on the CPU
+(`_primitives.segment_sum_inorder`): bitwise too, for runs of every length.
 """
 
 import importlib
@@ -327,15 +326,44 @@ def test_sum_duplicates_sorted_vs_jax(max_run):
     r, c, (d,) = jax_prim.lexsort_rowcol(rows, indices, (data,), (60, 50))
     nout = int(jax_prim.count_unique_sorted(r, c))
     want = jax_prim.sum_duplicates_sorted(r, c, d, nout)
-    got = prim.sum_duplicates_sorted(*(torch.from_numpy(np.asarray(x))
-                                       for x in (r, c, d)), nout)
-    assert_bitwise(got[0], np.asarray(want[0]))
-    assert_bitwise(got[1], np.asarray(want[1]))
-    if max_run <= 2:
-        assert_bitwise(got[2], np.asarray(want[2]))
-    else:
-        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
-                                   rtol=1e-6)
+    r_t, c_t, d_t = (torch.from_numpy(np.array(x)) for x in (r, c, d))
+    stats = prim.run_stats_sorted(r_t, c_t)
+    assert stats == (nout, int(np.diff(np.flatnonzero(np.r_[
+        True, (np.diff(np.asarray(r)) != 0) | (np.diff(np.asarray(c)) != 0),
+        True])).max()))
+    got = prim.sum_duplicates_sorted(r_t, c_t, d_t, *stats)
+    for x, y in zip(got, want):
+        assert_bitwise(x, np.asarray(y))
+    # ESC's helper keeps the doubling tree, bit for bit JAX's segsum_tree
+    tree = prim.sum_duplicates_sorted_tree(r_t, c_t, d_t, nout)
+    heads = np.r_[True, (np.diff(np.asarray(r)) != 0)
+                  | (np.diff(np.asarray(c)) != 0)]
+    scanned = np.asarray(jax_prim.segsum_tree(np.asarray(d), heads))
+    ends = np.r_[np.flatnonzero(heads)[1:], heads.size] - 1
+    assert_bitwise(tree[2], scanned[ends])
+
+
+@pytest.mark.parametrize("vals,want_bits", [
+    # in order: (1 + 2^-24) rounds to 1, then 1 again; the tree adds the two
+    # small terms first and gives 1 + 2^-23 (0x3f800001)
+    ([1.0, 2.0**-24, 2.0**-24], [0x3F800000]),
+    # a run of -0.0 sums from +0.0 in JAX: +0.0
+    ([-0.0, -0.0, -0.0], [0x00000000]),
+])
+def test_sum_duplicates_in_order_rounding(vals, want_bits):
+    d = np.array(vals, np.float32)
+    r = np.zeros(d.size, np.int32)
+    want = jax_prim.sum_duplicates_sorted(r, r, d, 1)[2]
+    assert np.asarray(want).view(np.uint32).tolist() == want_bits
+    r_t, d_t = torch.from_numpy(r), torch.from_numpy(d)
+    got = prim.sum_duplicates_sorted(r_t, r_t, d_t,
+                                     *prim.run_stats_sorted(r_t, r_t))
+    assert_bitwise(got[2], np.asarray(want))
+    # the (L, W) form sums each column the same way
+    wide = prim.segment_sum_inorder(torch.stack([d_t, d_t], 1),
+                                    torch.zeros(1, dtype=torch.long),
+                                    torch.tensor([d.size]), d.size)
+    assert_bitwise(wide, np.repeat(np.asarray(want), 2).reshape(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -355,13 +383,7 @@ def test_sum_duplicates_vs_jax_and_scipy(shape, density, max_run):
     want = a_ref.sum_duplicates()
     got = a.sum_duplicates()
     assert got.has_canonical_format and got.check_canonical()
-    assert_bitwise(got.indptr, np.asarray(want.indptr))
-    assert_bitwise(got.indices, np.asarray(want.indices))
-    if max_run <= 2:
-        assert_bitwise(got.data, np.asarray(want.data))
-    else:
-        np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
-                                   rtol=1e-6)
+    assert_csr_bitwise(got, want)
     ref = a.to_scipy().tocsr()
     ref.sum_duplicates()
     ref.sort_indices()
@@ -372,7 +394,7 @@ def test_sum_duplicates_vs_jax_and_scipy(shape, density, max_run):
 
 def test_sum_duplicates_of_unflagged_canonical_input():
     a_ref, a = pair(30, 20, 0.2, 12)
-    plain = pt.CSR(a.indptr, a.indices, a.data, a.shape)
+    plain = pt.CSR.from_parts(a.indptr, a.indices, a.data, a.shape)
     assert_csr_bitwise(plain.sum_duplicates(), a)
     assert plain.sum_duplicates().has_canonical_format
     empty = pt.CSR.from_parts(np.zeros(4, np.int32), np.zeros(0, np.int32),

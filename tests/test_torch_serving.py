@@ -284,10 +284,10 @@ def test_plan_new_values_same_structure():
         bv = rng.standard_normal(plan.nnz_b).astype(np.float32)
         C = plan(torch.from_numpy(av), torch.from_numpy(bv))
         assert_csr_match(C, jplan(jnp.asarray(av), jnp.asarray(bv)))
-        a2 = pt.CSR(a.indptr, a.indices, torch.from_numpy(av), a.shape,
-                    canonical=True)
-        b2 = pt.CSR(b.indptr, b.indices, torch.from_numpy(bv), b.shape,
-                    canonical=True)
+        a2 = pt.CSR.from_parts(a.indptr, a.indices, torch.from_numpy(av),
+                               a.shape, canonical=True)
+        b2 = pt.CSR.from_parts(b.indptr, b.indices, torch.from_numpy(bv),
+                               b.shape, canonical=True)
         assert_csr_bitwise(C, pt.spgemm(a2, b2, alg=1))
         # structure is shared, not recomputed
         assert C.indptr is plan.indptr and C.indices is plan.indices
@@ -309,7 +309,7 @@ def test_plan_explicit_zero_and_tiny_values():
     data = a.data.clone()
     data[0] = 0.0
     data[1] = float(np.float32(1.1754944e-38))
-    a = pt.CSR(a.indptr, a.indices, data, a.shape, canonical=True)
+    a = pt.CSR.from_parts(a.indptr, a.indices, data, a.shape, canonical=True)
     a_ref = st.CSR.from_parts(a_ref.indptr, a_ref.indices,
                               jnp.asarray(data.numpy()), a_ref.shape,
                               canonical=True)
@@ -358,11 +358,12 @@ def test_plan_validates():
     with pytest.raises(TypeError, match="CSR"):
         pt.spgemm_plan(a, b.toarray())
     with pytest.raises(ValueError, match="mismatch"):
-        pt.spgemm_plan(a, pt.random(64, 8, 0.1, seed=0, device="cpu"))
+        pt.spgemm_plan(a, pt.random(64, 8, 0.1, format="csr", seed=0,
+                                    device="cpu"))
     with pytest.raises(NotImplementedError, match="precision"):
         pt.spgemm_plan(a, b, precision="high")
-    b64 = pt.CSR(b.indptr, b.indices, b.data.double(), b.shape,
-                 canonical=True)
+    b64 = pt.CSR.from_parts(b.indptr, b.indices, b.data.double(), b.shape,
+                            canonical=True)
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spgemm_plan(a, b64)
 

@@ -22,8 +22,8 @@ torch = pytest.importorskip("torch")
 import spmm_tpu as st  # noqa: E402
 import spmm_tpu_torch as pt  # noqa: E402
 from spmm_tpu_torch.ops import _primitives as prim  # noqa: E402
-from torch_port_helpers import (assert_bitwise, assert_csr_match,  # noqa: E402
-                                csr_arrays, pair)
+from torch_port_helpers import (  # noqa: E402
+    assert_bitwise, assert_csr_bitwise, assert_csr_match, csr_arrays, pair)
 
 jax_prim = importlib.import_module("spmm_tpu.ops._primitives")
 jax_sg = importlib.import_module("spmm_tpu.ops.spgemm")
@@ -258,8 +258,8 @@ def test_bad_arguments_raise():
             pt.spgemm(a, b, precision=precision)
         with pytest.raises(NotImplementedError, match="precision"):
             pt.spgemm_fixed(a, b, precision=precision)
-    b64 = pt.CSR(b.indptr, b.indices, b.data.double(), b.shape,
-                 canonical=True)
+    b64 = pt.CSR.from_parts(b.indptr, b.indices, b.data.double(), b.shape,
+                            canonical=True)
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spgemm(a, b64)
 
@@ -270,7 +270,7 @@ def test_non_canonical_input_raises():
     indices = np.array([3, 1, 0], np.int32)
     data = np.array([1.0, 2.0, 3.0], np.float32)
     a = pt.CSR.from_parts(indptr, indices, data, (2, 4), device="cpu")
-    b = pt.random(4, 3, 0.5, seed=1, device="cpu")
+    b = pt.random(4, 3, 0.5, format="csr", seed=1, device="cpu")
     assert not a.check_canonical()
     a_ref = st.CSR.from_parts(indptr, indices, data, (2, 4))
     assert_bitwise(a.toarray(), np.asarray(a_ref.toarray()))
@@ -324,7 +324,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arrays = csr_arrays(8, 8, 0.5, seed=0)
     s = sp.csr_matrix((arrays[2], arrays[1], arrays[0]), shape=(8, 8))
-    builders = [lambda **kw: pt.random(8, 8, 0.5, seed=0, **kw),
+    builders = [lambda **kw: pt.random(8, 8, 0.5, format="csr", seed=0, **kw),
                 lambda **kw: pt.from_reference(s, **kw),
                 lambda **kw: pt.CSR.from_scipy(s, **kw),
                 lambda **kw: pt.CSR.from_parts(*arrays, (8, 8), **kw),
@@ -344,7 +344,7 @@ def test_random_without_device_raises_without_a_card():
         pytest.skip("a card is present: random() lands on it "
                     "(tests/test_torch_cuda.py)")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        pt.random(8, 8, 0.5)
+        pt.random(8, 8, 0.5, format="csr")
 
 
 def test_to_cuda_without_cuda_raises(monkeypatch):
@@ -353,7 +353,7 @@ def test_to_cuda_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         a.to("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        pt.random(8, 8, 0.3, seed=0, device="cuda")
+        pt.random(8, 8, 0.3, format="csr", seed=0, device="cuda")
     assert a.to("cpu").device == torch.device("cpu")
 
 
@@ -376,30 +376,41 @@ def test_from_reference_carries_arrays_and_flag():
     assert (s != a_ref.to_scipy()).nnz == 0
     assert pt.from_reference(s, device="cpu").has_canonical_format
     assert_bitwise(pt.CSR.from_scipy(s, device="cpu").data, a.data)
+    # every ported format is carried across; others raise
+    csc = pt.from_reference(sp.csc_matrix(s), device="cpu")
+    assert isinstance(csc, pt.CSC)
+    assert_bitwise(csc.toarray(), a.toarray())
     with pytest.raises(TypeError, match="format"):
-        pt.from_reference(sp.csc_matrix(s), device="cpu")
+        pt.from_reference(sp.lil_matrix(s), device="cpu")
 
 
 def test_random_semantics():
-    a = pt.random(50, 60, 0.1, seed=3, device="cpu")
+    a = pt.random(50, 60, 0.1, format="csr", seed=3, device="cpu")
     assert a.nnz == int(0.1 * 50 * 60) and a.shape == (50, 60)
     assert a.has_canonical_format and a.check_canonical()
     assert a.dtype == torch.float32
     assert float(a.data.min()) >= 0.0 and float(a.data.max()) < 1.0
-    again = pt.random(50, 60, 0.1, seed=3, device="cpu")
+    again = pt.random(50, 60, 0.1, format="csr", seed=3, device="cpu")
     assert_bitwise(again.indices, a.indices)
     assert_bitwise(again.data, a.data)
     gen = np.random.default_rng(3)
-    assert_bitwise(pt.random(50, 60, 0.1, seed=gen, device="cpu").data,
+    assert_bitwise(pt.random(50, 60, 0.1, format="csr", seed=gen,
+                             device="cpu").data,
                    a.data)
-    assert pt.random(50, 60, 0.1, dtype=torch.float64, seed=3,
+    assert pt.random(50, 60, 0.1, format="csr", dtype=torch.float64, seed=3,
                      device="cpu").dtype == torch.float64
-    assert pt.random(7, 9, 0.0, seed=1, device="cpu").nnz == 0
-    assert pt.random(7, 9, 1.0, seed=1, device="cpu").nnz == 63
-    with pytest.raises(NotImplementedError, match="CSR"):
-        pt.random(5, 5, 0.1, format="coo", device="cpu")
+    assert pt.random(7, 9, 0.0, format="csr", seed=1, device="cpu").nnz == 0
+    assert pt.random(7, 9, 1.0, format="csr", seed=1, device="cpu").nnz == 63
+    # a COO unless told otherwise, as in JAX; the same entries in any format
+    coo = pt.random(50, 60, 0.1, seed=3, device="cpu")
+    assert isinstance(coo, pt.COO) and coo.has_canonical_format
+    assert_csr_bitwise(coo.tocsr(), a)
+    for fmt, cls in (("csc", pt.CSC), ("bsr", pt.BSR), ("dia", pt.DIA)):
+        other = pt.random(50, 60, 0.1, format=fmt, seed=3, device="cpu")
+        assert isinstance(other, cls)
+        assert_bitwise(other.toarray(), a.toarray())
     with pytest.raises(ValueError, match="density"):
-        pt.random(5, 5, 1.5, device="cpu")
+        pt.random(5, 5, 1.5, format="csr", device="cpu")
 
 
 def test_primitives_match_jax():

@@ -417,14 +417,15 @@ def test_port_only_errors():
     for via in ("binned", "onehot"):  # as JAX off the TPU
         with pytest.raises(ValueError, match="does not apply"):
             pt.spmv(a, x, via=via)
-    for via in ("bsr", "bsr_pallas"):
-        with pytest.raises(NotImplementedError, match="§1.8"):
-            pt.spmm(a, np.ones((8, 2), np.float32), via=via)
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spmv(a, torch.ones(8, dtype=torch.float64))
-    a64 = pt.random(8, 8, 0.5, seed=0, dtype=torch.float64, device="cpu")
+    a64 = pt.random(8, 8, 0.5, format="csr", seed=0, dtype=torch.float64,
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         pt.spmm(a64, np.ones((8, 2), np.float32))
+    for via in ("bsr", "bsr_pallas"):  # the BSR routes hold float32 too
+        with pytest.raises(NotImplementedError, match="float32"):
+            pt.spmm(a64.tobsr(), np.ones((8, 2), np.float32), via=via)
     plan = spmv_binned_plan(a.indptr, a.indices, a.data, 8, 8)
     with pytest.raises(ValueError, match="x has"):
         spmv_binned(torch.ones(9), plan)

@@ -43,6 +43,55 @@ def unsorted_csr_arrays(m, n, density, seed, max_run=2):
     return indptr, (flat % n).astype(np.int32), data
 
 
+def coo_arrays(m, n, density, seed):
+    """(row, col, data) of int(density*m*n) distinct positions in drawn
+    (unsorted) order, as `spmm_tpu.random` returns them; U[0,1) float32."""
+    rng = np.random.default_rng(seed)
+    flat = rng.choice(m * n, size=int(density * m * n), replace=False)
+    data = rng.random(flat.size, dtype=np.float32)
+    return ((flat // n).astype(np.int32), (flat % n).astype(np.int32),
+            data)
+
+
+def sparse_pair(m, n, density, seed, fmt="csr"):
+    """The same `coo_arrays` matrix as a `spmm_tpu` container and as the
+    port's on the CPU, each converted to `fmt` by its own package."""
+    import spmm_tpu as st
+    import spmm_tpu_torch as pt
+
+    row, col, data = coo_arrays(m, n, density, seed)
+    ref = st.COO((data, (row, col)), shape=(m, n)).asformat(fmt)
+    got = pt.COO((data, (row, col)), shape=(m, n),
+                 device="cpu").asformat(fmt)
+    return ref, got
+
+
+# the structure arrays of each format, compared bitwise by `assert_same`
+STRUCTURE = {"coo": ("row", "col"), "csr": ("indptr", "indices"),
+             "csc": ("indptr", "indices"), "bsr": ("indptr", "indices"),
+             "dia": ()}
+
+
+def assert_same(got, want, rtol=None):
+    """A port container against a `spmm_tpu` one: format, shape, canonical
+    flag and structure (offsets of a DIA) bitwise; data bitwise, or within
+    rtol and atol = rtol * max|want| when `rtol` is given."""
+    assert got.format == want.format, (got.format, want.format)
+    assert tuple(got.shape) == tuple(want.shape)
+    if got.format in ("coo", "csr", "csc"):
+        assert got.has_canonical_format == want.has_canonical_format
+    for name in STRUCTURE[got.format]:
+        assert_bitwise(getattr(got, name), np.asarray(getattr(want, name)))
+    if got.format == "dia":
+        assert got._offsets == tuple(want._offsets)
+    w = np.asarray(want.data)
+    if rtol is None:
+        assert_bitwise(got.data, w)
+    else:
+        atol = rtol * float(np.abs(w).max()) if w.size else 0.0
+        np.testing.assert_allclose(got.data.numpy(), w, rtol=rtol, atol=atol)
+
+
 def masked_dense(m, n, g, seed):
     """(c, mask, kept count): a float32 (m, n) product with `g` holes, as
     in tests/test_extract_roll.py."""
