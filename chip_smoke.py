@@ -25,15 +25,24 @@ for each:
      float64 product, per row within 1e-6 of the row's absolute sum
      (|A|@|x|)_i, at five cells (SpMV 1024^2/0.1, 16384^2/5e-3 and a
      2^20-row power-law matrix; SpMM 10000^2/0.01 and the power-law matrix,
-     k = 64) and at an edge CSR, each bitwise on rerun;
+     k = 64) and at the SpMV edges (rows spanning many chunks between empty
+     leading and trailing rows, rows of several binned pieces, an all-empty
+     matrix, m = 1, the 37x45 edge CSR), `spmv_onehot` at every chunk size
+     there, each bitwise on rerun; `segment_sum` bitwise against its plain
+     version on the CPU at the power-law matrix's rows;
   5. the SpMV/SpMM entry points (`spmv` per call and with each tagged plan,
      `spmv(transa=True)`, `spmm` per call and with the routed plan,
-     `A @ x`, `A @ X`) at those cells against scipy, bitwise on rerun, with
-     every kernel's launch count as expected;
-  6. their CUDA-event timings: each kernel against its plain version,
-     `spmv` by plan tag, plan builds on the host clock, Gnnz/s and
-     G MAC/s, the device's busy time and idle share from a profiler trace,
-     and torch's own CSR @ dense (cuSPARSE) as a comparator off the path;
+     `A @ x`, `A @ X`) at those cells and edges against scipy, bitwise on
+     rerun, and `sum(axis=1)` of the power-law matrix and `diagonal()`
+     bitwise the CPU's, with every kernel's launch count as expected;
+  6. their CUDA-event timings: each kernel against its plain version and
+     `torch.mv` (cuSPARSE) in turns, per call (an event pair around one
+     call, the host's wrapper included) and per call of 200 back to back,
+     the kernels' device busy time from a profiler trace, each cell's bound,
+     `spmv_onehot` at chunk sizes 1024-4096, `spmv` by plan tag and end to
+     end, plan builds on the host clock, Gnnz/s and G MAC/s, the device's
+     busy time and idle share; `diagonal()`, `sum(axis=1)` and
+     `segment_sum` beside its plain version and `torch.segment_reduce`;
   7. fixed-structure serving, `spgemm_plan(A, B)`, at SpGEMM 1024^2/0.1,
      8192^2/1e-3 and an edge pair (explicit zeros, empty rows and columns)
      plus an empty output: `expand_routed` / `compress_routed` bitwise
@@ -80,7 +89,8 @@ for each:
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
 card could take for the same work and what bounds it, and the time of one
-PyTorch library call computing the same function, where there is one), and
+PyTorch library call computing the same function, where there is one) for
+the eleven TPU kernels' counterparts and the port's own `segment_sum`, and
 as the last line `{"ok": true, "device": {...}}`.  Any failure raises and
 exits non-zero;
 so does a machine without CUDA.  It imports neither jax nor spmm_tpu.
@@ -113,6 +123,7 @@ from spmm_tpu_torch.ops.kernels.densify_onehot import (
     densify_onehot_plain)
 from spmm_tpu_torch.ops.kernels.extract_roll import (extract_roll,
                                                      extract_roll_plain)
+from spmm_tpu_torch.ops.kernels import segment_sum as ks
 from spmm_tpu_torch.ops.kernels import spmv_binned as kb
 from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
 from spmm_tpu_torch.ops.kernels import spmv_routed as kr
@@ -534,7 +545,42 @@ class RowCheck:
         return float((err / scale).max()) if err.size else 0.0
 
 
-def _kernel_runs(name, a, x):
+def spmv_edges(dev):
+    """(name, A, x): SpMV edge cases at the kernels' boundaries: rows
+    spanning many `spmv_onehot` chunks between empty leading and trailing
+    rows, rows of 1, 2 and 4 `spmv_binned` pieces, an all-empty matrix, one
+    row of 4999 entries (m = 1), and the 37x45 edge with a full row and a
+    stored zero; x N(0,1) from seed 11."""
+    rng = np.random.default_rng(11)
+
+    def csr(lens, n):
+        lens = np.asarray(lens, np.int64)
+        indices = np.concatenate(
+            [np.sort(rng.choice(n, int(k), replace=False)) for k in lens]
+            + [np.zeros(0, np.int64)])
+        indptr = np.concatenate([[0], np.cumsum(lens)])
+        data = rng.standard_normal(indices.size).astype(np.float32)
+        return pt.CSR.from_parts(indptr.astype(np.int32),
+                                 indices.astype(np.int32), data,
+                                 (lens.size, n), canonical=True, device=dev)
+
+    span = np.zeros(60, np.int64)
+    span[[5, 6, 30, 40]] = [2900, 1, 2000, 256]
+    span[10:25] = rng.integers(0, 40, 15)
+    hub = np.zeros(40, np.int64)
+    hub[[2, 3, 9, 20]] = [3 * kb.PIECE + 7, kb.PIECE, kb.PIECE + 1,
+                          kb.CLASS_BOUNDS[-1] + 1]
+    hub[25:35] = rng.integers(0, 70, 10)
+    mats = [("edge span chunks 60x3000", csr(span, 3000)),
+            ("edge hub pieces 40x13000", csr(hub, 13000)),
+            ("edge all empty 50x40", csr(np.zeros(50), 40)),
+            ("edge m=1 1x5000", csr([4999], 5000)),
+            ("edge 37x45", edge_csr_full_row(dev))]
+    return [(name, a, torch.from_numpy(rng.standard_normal(
+        a.shape[1]).astype(np.float32)).to(dev)) for name, a in mats]
+
+
+def _kernel_runs(name, a, x, ch=ko.CH_DEFAULT):
     """(kernel output, its rerun, plain output) of one kernel on a."""
     m, n = a.shape
     args = (a.indptr, a.indices, a.data)
@@ -543,7 +589,7 @@ def _kernel_runs(name, a, x):
         run, plain = (lambda: kb.spmv_binned(x, p),
                       lambda: kb.spmv_binned_plain(x, p))
     elif name == "spmv_onehot":
-        p = ko.spmv_onehot_plan(a.indptr, m, n)
+        p = ko.spmv_onehot_plan(a.indptr, m, n, ch=ch)
         run = lambda: ko.spmv_onehot(*args, x, m, n, p)  # noqa: E731
         plain = lambda: ko.spmv_onehot_plain(*args, x, m, n, p)  # noqa: E731
     elif name == "spmv_routed":
@@ -557,61 +603,109 @@ def _kernel_runs(name, a, x):
     return run(), run(), plain()
 
 
+def axis1_segments(a):
+    """The in-order segment sum behind `a.sum(axis=1)` of a CSR: its data
+    and its rows as (starts, lengths)."""
+    return a.data, a.indptr[:-1], a.indptr[1:] - a.indptr[:-1]
+
+
 def phase4(dev, spmv_cells, spmm_cells):
     """Each SpMV/SpMM kernel against its plain version and scipy on the
-    card; returns (max |kernel - plain| per kernel, worst ratio per kernel
-    and cell)."""
-    edge = edge_csr_full_row(dev)
+    card, `spmv_onehot` also at every chunk size on the edges, and
+    `segment_sum` bitwise against its plain version on the CPU; returns
+    (max |kernel - plain| per kernel, worst ratio per kernel and cell, the
+    reference checks)."""
+    edges = spmv_edges(dev)
     rng = np.random.default_rng(7)
-    ex = torch.from_numpy(rng.standard_normal(45).astype(np.float32)).to(dev)
+    edge = edges[-1][1]
     eX = torch.from_numpy(rng.standard_normal((45, 33)).astype(
         np.float32)).to(dev)
-    jobs = [(k, name, a, x) for name, a, x in
-            spmv_cells + [("edge 37x45", edge, ex)] for k in SPMV_KERNELS]
-    jobs += [(k, name, a, x) for name, a, x in
+    jobs = [(k, name, a, x, ko.CH_DEFAULT) for name, a, x in
+            spmv_cells + edges for k in SPMV_KERNELS]
+    jobs += [("spmv_onehot", name, a, x, ch) for name, a, x in edges
+             for ch in ko.CH_CHOICES if ch != ko.CH_DEFAULT]
+    jobs += [(k, name, a, x, None) for name, a, x in
              spmm_cells + [("edge 37x45 k=33", edge, eX)]
              for k in ("spmm_routed", "spmm_routed_percall")]
     err = {k: 0.0 for k in (*SPMV_KERNELS, "spmm_routed")}
     ratios = {}
     checks = {}
-    for kernel, name, a, x in jobs:
+    for kernel, name, a, x, ch in jobs:
         key = (name, id(x))
         if key not in checks:
             checks[key] = RowCheck(a, x)
-        got, again, plain = _kernel_runs(kernel, a, x)
+        got, again, plain = _kernel_runs(kernel, a, x, ch)
         torch.cuda.synchronize()
+        what = f"{kernel} at {name}" + ("" if ch in (None, ko.CH_DEFAULT)
+                                        else f" ch={ch}")
         if not same_bits(got, again):
-            raise AssertionError(f"{kernel} at {name}: rerun not bitwise")
-        r_k = checks[key].ratio(got, f"{kernel} at {name}")
-        r_p = checks[key].ratio(plain, f"{kernel} plain at {name}")
+            raise AssertionError(f"{what}: rerun not bitwise")
+        r_k = checks[key].ratio(got, what)
+        r_p = checks[key].ratio(plain, f"{what} (plain)")
         base = "spmm_routed" if kernel.startswith("spmm") else kernel
         err[base] = max(err[base], max_abs(got, plain))
-        ratios[f"{kernel} @ {name}"] = [r_k, r_p]
+        ratios[what.replace(" at ", " @ ")] = [r_k, r_p]
         del got, again, plain
+    # the binned plan kernels: bitwise their plain version on the card
+    for name, a, _ in spmv_cells + edges:
+        m, n = a.shape
+        p = kb.spmv_binned_plan(a.indptr, a.indices, a.data, m, n)
+        plain = kb.spmv_binned_plan_plain(a.indptr, m, p.piece_row.numel())
+        total = int(plain[2][-1])
+        if not all(same_bits(x, y) for x, y in zip(
+                (p.rows, p.class_off, p.piece_end, p.piece_row[:total]),
+                plain[:3] + (plain[3][:total],))):
+            raise AssertionError(f"spmv_binned_plan at {name}: the kernels' "
+                                 "plan differs from the plain version's")
+    err["spmv_binned_plan"] = 0.0
+    # the in-order segment sum: bitwise its plain version on the CPU (on a
+    # card the plain version adds with atomics, in no fixed order), one
+    # column and three
+    plaw = spmv_cells[-1][1]
+    vals, starts, lengths = axis1_segments(plaw)
+    cases = [(vals, starts, lengths),
+             (torch.stack([vals, -vals, 2 * vals], 1), starts, lengths)]
+    err["segment_sum"] = 0.0
+    for args in cases:
+        got = ks.segment_sum_inorder(*args)
+        want = ks.segment_sum_inorder_plain(*(t.cpu() for t in args))
+        if not same_bits(got.cpu(), want):
+            raise AssertionError("segment_sum kernel != its plain version on "
+                                 f"the CPU at {tuple(args[0].shape)}")
+        err["segment_sum"] = max(err["segment_sum"], max_abs(got.cpu(), want))
     print("phase 4: worst |y - y64| / (1e-6 |A||x|)_i, [kernel, plain]: "
-          + json.dumps(ratios), flush=True)
-    return err, ratios, checks
+          + json.dumps(ratios) + "; spmv_binned_plan bitwise its plain "
+          "version at every SpMV cell and edge; segment_sum bitwise the "
+          f"CPU's at {[tuple(c[0].shape) for c in cases]}", flush=True)
+    return err, ratios, checks, edges
 
 
-def phase5(spmv_cells, spmm_cells, checks):
-    """The entry points at every cell, against scipy, bitwise on rerun, and
-    with each kernel's launch count as expected; returns the counts."""
+def phase5(spmv_cells, spmm_cells, edges, checks):
+    """The entry points at every cell and edge, against scipy, bitwise on
+    rerun, and with each kernel's launch count as expected; the axis sums
+    and `diagonal()` of the SpMV matrices bitwise the CPU's; returns the
+    counts."""
     runs = []
-    for name, a, x in spmv_cells:
+    for name, a, x in spmv_cells + edges:
         routed = pt.spmv_plan(a)
         onehot = ("onehot", ko.spmv_onehot_plan(a.indptr, *a.shape))
+        m, n = a.shape
+        xt = x.repeat(-(-m // n))[:m].contiguous()  # op(A) = A^T takes m
         runs += [
             (f"spmv(a, x) @ {name}", lambda a=a, x=x: pt.spmv(a, x),
              (name, id(x))),
-            (f"spmv(plan=routed) @ {name}",
-             lambda a=a, x=x, p=routed: pt.spmv(a, x, plan=p), (name, id(x))),
             (f"spmv(plan=onehot) @ {name}",
              lambda a=a, x=x, p=onehot: pt.spmv(a, x, plan=p), (name, id(x))),
             (f"spmv(transa) @ {name}",
-             lambda a=a, x=x: pt.spmv(a, x, transa=True), (name, "T")),
+             lambda a=a, x=xt: pt.spmv(a, x, transa=True), (name, "T")),
             (f"a @ x @ {name}", lambda a=a, x=x: a @ x, (name, id(x))),
         ]
-        checks[(name, "T")] = RowCheck(a, x, transa=True)
+        if routed is not None:  # None for an empty matrix, as in JAX
+            runs.append((f"spmv(plan=routed) @ {name}",
+                         lambda a=a, x=x, p=routed: pt.spmv(a, x, plan=p),
+                         (name, id(x))))
+        checks[(name, "T")] = RowCheck(a, xt, transa=True)
+    nrouted = sum(what.startswith("spmv(plan=routed)") for what, _, _ in runs)
     for name, a, X in spmm_cells:
         routed = pt.spmv_plan(a)
         runs += [
@@ -621,21 +715,30 @@ def phase5(spmv_cells, spmm_cells, checks):
              lambda a=a, X=X, p=routed: pt.spmm(a, X, plan=p), (name, id(X))),
             (f"a @ X @ {name}", lambda a=a, X=X: a @ X, (name, id(X))),
         ]
+    # the in-order sums: sum(axis=1) of the power-law matrix, diagonal() of
+    # the uniform ones
+    sums = [(f"sum(axis=1) @ {spmv_cells[-1][0]}", spmv_cells[-1][1],
+             lambda a: a.sum(axis=1))]
+    sums += [(f"diagonal() @ {name}", a, lambda a: a.diagonal())
+             for name, a, _ in spmv_cells[:2]]
     torch.cuda.synchronize()
     _build.reset_launches()
     outs = [(what, fn(), fn(), key) for what, fn, key in runs]
+    outs_sum = [(what, a, fn(a), fn(a)) for what, a, fn in sums]
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    nspmv, nspmm = len(spmv_cells), len(spmm_cells)
+    nspmv, nspmm = len(spmv_cells) + len(edges), len(spmm_cells)
     # a @ X goes dense (densify + one GEMM) where A's density reaches the
     # break-even curve, else to spmm_routed
     dense = sum(a.density >= pt.break_even_density(*a.shape, X.shape[1])
                 for _, a, X in spmm_cells)
     want = dict.fromkeys(launches, 0)
     want.update({"densify_onehot": 2 * dense,
-                 "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nspmv,
+                 "spmv_binned": 2 * 3 * nspmv, "spmv_routed": 2 * nrouted,
+                 "spmv_binned_plan": 2 * 3 * nspmv,
                  "spmv_onehot": 2 * nspmv,
-                 "spmm_routed": 2 * (2 * nspmm + nspmm - dense)})
+                 "spmm_routed": 2 * (2 * nspmm + nspmm - dense),
+                 "segment_sum": 2 * len(sums)})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes = {}
@@ -643,6 +746,32 @@ def phase5(spmv_cells, spmm_cells, checks):
         if not same_bits(y1, y2):
             raise AssertionError(f"{what}: rerun not bitwise")
         notes[what] = checks[key].ratio(y1, what)
+    for what, a, y1, y2 in outs_sum:
+        cpu = a.to("cpu")
+        want_y = cpu.sum(axis=1) if what.startswith("sum") else cpu.diagonal()
+        if not (same_bits(y1, y2) and same_bits(y1.cpu(), want_y)):
+            raise AssertionError(f"{what}: not bitwise on rerun and the CPU's")
+        if what.startswith("sum"):
+            # JAX's in-order sum (bitwise the CPU's, above) against scipy's
+            # float64 sum, within the bound of adding len terms in order,
+            # gamma_(len-1) sum_j |a_ij| with gamma_k = k u / (1 - k u) and
+            # u = 2^-24: a row of 2^20 terms added in order does not keep
+            # 1e-6 of its absolute sum
+            s64 = a.to_scipy().astype(np.float64)
+            ref = np.asarray(s64.sum(axis=1)).ravel()
+            ku = np.maximum(np.diff(s64.indptr) - 1, 0) * 2.0**-24
+            tol = ku / (1 - ku) * np.asarray(abs(s64).sum(axis=1)).ravel()
+            err = np.abs(y1.cpu().double().numpy() - ref)
+            if (err > tol).any():
+                raise AssertionError(f"{what}: {int((err > tol).sum())} rows "
+                                     "off scipy's float64 sum by more than "
+                                     "the in-order bound")
+            notes[what] = float((err / np.maximum(tol, 1e-300)).max())
+        else:
+            ref = a.to_scipy().diagonal().astype(np.float32)
+            if not np.array_equal(y1.cpu().numpy(), ref):
+                raise AssertionError(f"{what}: differs from scipy's")
+            notes[what] = 0.0
     print(f"phase 5: launches {launches}; worst ratio per entry point "
           + json.dumps(notes), flush=True)
     return launches
@@ -660,6 +789,29 @@ def host_ms(fn, runs: int = 3) -> float:
     return statistics.median(times)
 
 
+def loop_ms(fn, calls: int = 200) -> float:
+    """Device time per call: CUDA events around `calls` back-to-back calls
+    (after a warm-up), over the count.  Where the host enqueues slower than
+    the device runs, this is the host's rate."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_busy_ms(fn, calls: int = 50):
+    """Device busy time per call of `fn` from a profiler trace (None where
+    the trace holds no device events)."""
+    return device_profile(fn, calls)[0]
+
+
 def _torch_csr(a):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # beta notices
@@ -667,8 +819,14 @@ def _torch_csr(a):
                                        a.data, a.shape)
 
 
+def spmv_bound_ms(nnz: int, m: int, n: int):
+    """The least time of y = A @ x: (index, value) per entry, indptr, x and
+    y once each, over the HBM rate; 2 flops an entry."""
+    return bound(8 * nnz + 4 * (m + 1) + 4 * n + 4 * m, 2 * nnz)
+
+
 def phase6(spmv_cells, spmm_cells, smi):
-    """CUDA-event medians per cell; returns the table rows."""
+    """CUDA-event timings per cell; returns the table rows."""
     rows = []
     for name, a, x in spmv_cells:
         m, n = a.shape
@@ -677,26 +835,48 @@ def phase6(spmv_cells, spmm_cells, smi):
         binned = kb.spmv_binned_plan(*args, m, n)
         onehot = ko.spmv_onehot_plan(a.indptr, m, n)
         ta = _torch_csr(a)
+        call_b = lambda: kb.spmv_binned(x, binned)  # noqa: E731
+        call_o = lambda: ko.spmv_onehot(*args, x, m, n, onehot)  # noqa: E731
+        call_mv = lambda: torch.mv(ta, x)  # noqa: E731
         row = {
             "cell": name, "nnz": a.nnz, "m": m, "n": n,
+            "bound_ms": spmv_bound_ms(a.nnz, m, n)[0],
             "routed_slack": routed.slack,
             "plan_routed_host_ms": host_ms(
                 lambda: kr.spmv_routed_plan(*args, m, n)),
             "plan_binned_host_ms": host_ms(
                 lambda: kb.spmv_binned_plan(*args, m, n)),
+            "spmv_binned_plan_ms": median_ms(
+                lambda: kb.spmv_binned_plan(*args, m, n)),
+            "spmv_binned_plan_plain_ms": median_ms(
+                lambda: kb.spmv_binned_plan_plain(
+                    a.indptr, m, binned.piece_row.numel())),
+            "spmv_binned_plan_busy_ms": kernel_busy_ms(
+                lambda: kb.spmv_binned_plan(*args, m, n)),
             "plan_onehot_host_ms": host_ms(
                 lambda: ko.spmv_onehot_plan(a.indptr, m, n)),
-            "spmv_binned_ms": median_ms(lambda: kb.spmv_binned(x, binned)),
+            # in turns: library, kernels, kernels, library
+            "torch_csr_mv_ms": median_ms(call_mv),
+            "spmv_binned_ms": median_ms(call_b),
+            "spmv_onehot_ms": median_ms(call_o),
+            "spmv_binned_ms_2": median_ms(call_b),
+            "spmv_onehot_ms_2": median_ms(call_o),
+            "torch_csr_mv_ms_2": median_ms(call_mv),
+            "spmv_binned_loop_ms": loop_ms(call_b),
+            "spmv_onehot_loop_ms": loop_ms(call_o),
+            "torch_csr_mv_loop_ms": loop_ms(call_mv),
+            "spmv_binned_busy_ms": kernel_busy_ms(call_b),
+            "spmv_onehot_busy_ms": kernel_busy_ms(call_o),
+            "torch_csr_mv_busy_ms": kernel_busy_ms(call_mv),
             "spmv_binned_plain_ms": median_ms(
                 lambda: kb.spmv_binned_plain(x, binned)),
             "spmv_routed_ms": median_ms(lambda: kr.spmv_routed(x, routed)),
             "spmv_routed_plain_ms": median_ms(
                 lambda: kr.spmv_routed_plain(x, routed)),
-            "spmv_onehot_ms": median_ms(
-                lambda: ko.spmv_onehot(*args, x, m, n, onehot)),
             "spmv_onehot_plain_ms": median_ms(
                 lambda: ko.spmv_onehot_plain(*args, x, m, n, onehot)),
             "spmv_call_ms": median_ms(lambda: pt.spmv(a, x)),
+            "spmv_call_loop_ms": loop_ms(lambda: pt.spmv(a, x)),
             "spmv_tag_routed_ms": median_ms(
                 lambda: pt.spmv(a, x, plan=("routed", routed))),
             "spmv_tag_binned_ms": median_ms(
@@ -704,8 +884,14 @@ def phase6(spmv_cells, spmm_cells, smi):
             "spmv_tag_onehot_ms": median_ms(
                 lambda: pt.spmv(a, x, plan=("onehot", onehot))),
             "spmv_transa_ms": median_ms(lambda: pt.spmv(a, x, transa=True)),
-            "torch_csr_mv_ms": median_ms(lambda: torch.mv(ta, x)),
         }
+        # the chunk size of spmv_onehot, device time per call at each
+        for ch in ko.CH_CHOICES[2:]:
+            p = ko.spmv_onehot_plan(a.indptr, m, n, ch=ch)
+            row[f"spmv_onehot_ch{ch}_busy_ms"] = kernel_busy_ms(
+                lambda p=p: ko.spmv_onehot(*args, x, m, n, p))
+            row[f"spmv_onehot_ch{ch}_loop_ms"] = loop_ms(
+                lambda p=p: ko.spmv_onehot(*args, x, m, n, p))
         for tag in ("call", "tag_routed", "tag_binned", "tag_onehot"):
             row[f"spmv_{tag}_gnnz_s"] = a.nnz / row[f"spmv_{tag}_ms"] / 1e6
         busy, top = device_profile(
@@ -718,6 +904,18 @@ def phase6(spmv_cells, spmm_cells, smi):
         row["spmv_call_idle_share"] = (
             None if busy is None else 1.0 - busy / row["spmv_call_ms"])
         row["spmv_call_device_top_ms"] = top
+        # the in-order sums on the card
+        row["diagonal_ms"] = median_ms(a.diagonal, runs=5, warmup=1)
+        row["sum_axis1_ms"] = median_ms(lambda: a.sum(axis=1), runs=5,
+                                        warmup=1)
+        seg = axis1_segments(a)
+        row["segment_sum_ms"] = median_ms(
+            lambda: ks.segment_sum_inorder(*seg), runs=5, warmup=1)
+        row["segment_sum_plain_ms"] = median_ms(
+            lambda: ks.segment_sum_inorder_plain(*seg), runs=5, warmup=1)
+        row["segment_sum_library_ms"] = median_ms(
+            lambda: torch.segment_reduce(a.data, "sum", lengths=seg[2]),
+            runs=5, warmup=1)
         rows.append(row)
         del ta
         print(f"phase 6 [{smi}]: " + json.dumps(row), flush=True)
@@ -1583,13 +1781,14 @@ def main():
     rows = phase3(cells, nnzs, smi)
     del cells
     spmv_cells, spmm_cells = make_spmv_cells(dev)
-    err4, _, checks = phase4(dev, spmv_cells, spmm_cells)
-    launches5 = phase5(spmv_cells, spmm_cells, checks)
-    del checks
+    err4, _, checks, edges = phase4(dev, spmv_cells, spmm_cells)
+    launches5 = phase5(spmv_cells, spmm_cells, edges, checks)
+    del checks, edges
     rows6 = phase6(spmv_cells, spmm_cells, smi)
     # times of the SpMV/SpMM kernels at the streaming cells: SpMV
-    # 16384^2/5e-3, SpMM 10000^2/0.01
+    # 16384^2/5e-3, SpMM 10000^2/0.01; segment_sum at the power-law matrix
     t_mv = rows6[1]
+    t_pl = rows6[2]
     t_mm = next(r for r in rows6 if r["cell"] == spmm_cells[0][0])
     del spmv_cells, spmm_cells
     torch.cuda.empty_cache()
@@ -1615,10 +1814,8 @@ def main():
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
     n1 = CELLS[0][1]  # 1024: the SpGEMM cell of rows 1-3
-    mv_csr = 8 * t_mv["nnz"] + 4 * (t_mv["m"] + 1)
     mm_csr = 8 * t_mm["nnz"] + 4 * (t_mm["m"] + 1)
-    spmv_bound = bound(mv_csr + 4 * (t_mv["n"] + t_mv["m"]),
-                       2 * t_mv["nnz"])
+    spmv_bound = spmv_bound_ms(t_mv["nnz"], t_mv["m"], t_mv["n"])
     spmm_bound = bound(mm_csr + 4 * t_mm["k"] * (t_mm["n"] + t_mm["m"]),
                        2 * t_mm["nnz"] * t_mm["k"])
     sv_m, sv_k = t_sv["a_shape"]
@@ -1627,7 +1824,8 @@ def main():
                least, library_ms):
         return {"name": name, "route": "cuda",
                 "source": f"spmm_tpu_torch/csrc/{source}",
-                "replaces": f"spmm_tpu/ops/kernels/{replaces}",
+                "replaces": (replaces if replaces.startswith("none:")
+                             else f"spmm_tpu/ops/kernels/{replaces}"),
                 "launches": launched, "max_abs_err": max_err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": least[0],
                 "bound_by": least[1], "library_ms": library_ms}
@@ -1693,6 +1891,26 @@ def main():
                bound(4 * t_mxu["m"] * t_mxu["k"] + 4 * (t_mxu["m"] + 1)
                      + 8 * t_mxu["nnz"]),
                t_mxu["mxu_library_ms"]),
+        # the port's own kernels, no TPU kernel behind them.  The binned
+        # plan: indptr once, rows and piece_end written once; no library
+        # call computes it
+        kernel("spmv_binned_plan", "spmv_binned.cu",
+               "none: the port's own kernels (the TPU plan is host numpy, "
+               "spmm_tpu/ops/kernels/spmv_binned.py:104)",
+               launches5["spmv_binned_plan"], err4["spmv_binned_plan"],
+               t_mv["spmv_binned_plan_ms"], t_mv["spmv_binned_plan_plain_ms"],
+               bound(4 * (t_mv["m"] + 1) + 8 * t_mv["m"], t_mv["m"]), None),
+        # the in-order segment sum (JAX: jax.ops.segment_sum / .at[].add):
+        # values once, the int64 starts and lengths, the sums once; one add
+        # an entry
+        kernel("segment_sum", "segment_sum.cu",
+               "none: the port's own kernel (JAX: jax.ops.segment_sum, "
+               "spmm_tpu/ops/_primitives.py:151, and .at[].add, "
+               "spmm_tpu/sparse/base.py:293)",
+               launches5["segment_sum"], err4["segment_sum"],
+               t_pl["segment_sum_ms"], t_pl["segment_sum_plain_ms"],
+               bound(4 * t_pl["nnz"] + 20 * t_pl["m"], t_pl["nnz"]),
+               t_pl["segment_sum_library_ms"]),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

@@ -8,10 +8,12 @@ torch device, with the conversions between them, the constructors,
 and the fixed-structure serving plans `spgemm_plan` / `SpgemmPlan`) and the
 SpMV/SpMM paths (`spmv`, `spmv_plan`, `spmm` with its CSR, dense and BSR
 routes, `break_even_density`, and `A @ x`, `A @ X`, `x @ A`, `X @ A` for
-every format), with eleven hand-written CUDA kernels built with `nvcc` for
-`sm_90a` on first use.  Its constructors put data on the card unless
-`device="cpu"` is passed, or the tensors they are given lie elsewhere; on
-CPU tensors every kernel runs its plain PyTorch version.
+every format), with eleven hand-written CUDA kernels in place of the
+Pallas ones, and two of the port's own (the in-order segment sum and the
+binned SpMV plan), built with `nvcc` for `sm_90a` on first use.  Its
+constructors put data on the card unless `device="cpu"` is passed, or the
+tensors they are given lie elsewhere; on CPU tensors every kernel runs its
+plain PyTorch version.
 It imports torch and never jax.
 """
 

@@ -1,9 +1,12 @@
 // Fixed-order row reductions shared by the SpMV/SpMM kernels.
 //
 // Every sum here has an order that depends only on the shapes (row length,
-// lane-group width), never on timing: each lane of a group adds its strided
-// entries in entry order, then a fixed __shfl_down_sync tree combines the
-// lanes.  So reruns are bitwise equal, and no float atomics are used.
+// lane-group width, piece count), never on timing: each lane of a group
+// adds its strided entries in entry order, then a fixed __shfl_down_sync
+// tree combines the lanes.  A row cut into pieces that several blocks sum
+// is closed by `join_piece`: an integer counter picks the block that adds
+// the pieces, and the pieces are added in piece order whichever block that
+// is.  So reruns are bitwise equal, and no float atomics are used.
 
 #pragma once
 
@@ -31,6 +34,7 @@ __device__ __forceinline__ float strided_dot(const int* __restrict__ indices,
                                              long long start, long long end,
                                              int lane, int stride) {
   float acc = 0.0f;
+#pragma unroll 4
   for (long long e = start + lane; e < end; e += stride) {
     acc = fmaf(data[e], __ldg(x + indices[e]), acc);
   }
@@ -54,6 +58,55 @@ __device__ __forceinline__ float block_tree_sum(float v, float* smem) {
   }
   __syncthreads();  // smem is rewritten by the next call
   return v;
+}
+
+// Sum of the pieces piece(0), ..., piece(n - 1) by one warp, in piece
+// order: lane l adds the run [l*g, min((l+1)*g, n)) in order (g = ceil(n /
+// 32)), then the runs are added in lane order.  Every lane of the warp must
+// call it; every lane returns the sum.
+template <typename Piece>
+__device__ __forceinline__ float warp_ordered_sum(Piece piece, int n) {
+  const int lane = threadIdx.x & 31;
+  const int g = (n + 31) / 32;
+  const int b = lane * g;
+  const int e = min(b + g, n);
+  float run = 0.0f;
+  if (b < e) {
+    run = piece(b);
+    for (int i = b + 1; i < e; ++i) run += piece(i);
+  }
+  float sum = __shfl_sync(0xffffffffu, run, 0);
+  for (int l = 1; l < 32; ++l) {
+    const float r = __shfl_sync(0xffffffffu, run, l);
+    if (l * g < n) sum += r;
+  }
+  return sum;
+}
+
+// One of the `parts` pieces of a row that several blocks sum.  A whole warp
+// calls it.  Lane 0 stores `piece` to *slot, fences, and adds one to the
+// row's integer counter; the warp whose increment is the last sums all the
+// pieces in order (`pieces(i)`, read from L2, since other blocks stored
+// them), writes the sum to *out, and resets the counter to 0 for the next
+// launch.  The atomic decides only who sums, never the order of the sum.
+template <typename Pieces>
+__device__ __forceinline__ void join_piece(float piece, float* slot,
+                                           int* counter, int parts,
+                                           Pieces pieces, float* out) {
+  int last = 0;
+  if ((threadIdx.x & 31) == 0) {
+    *slot = piece;
+    __threadfence();
+    last = atomicAdd(counter, 1) == parts - 1;
+  }
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (!last) return;
+  __threadfence();
+  const float sum = warp_ordered_sum(pieces, parts);
+  if ((threadIdx.x & 31) == 0) {
+    *out = sum;
+    *counter = 0;
+  }
 }
 
 }  // namespace spmm

@@ -5,12 +5,12 @@ set: the pieces the alg1 SpGEMM, SpMV, SpMM, serving and ESC paths need.
 Indices are int32 (`INDEX_DTYPE`), as in the JAX package; flat dense
 offsets are formed in int64, since row*k+col passes 2^31 at large shapes.
 Everything is deterministic on every device (stable sorts, the in-order
-`segment_sum_inorder`, the fixed doubling tree of `segsum_tree`), except
-`segment_sum_rows` on a CUDA tensor (a plain version, never on a card
-path), which adds with atomics.  None of these functions reads a value back
-to the host, apart from `run_stats_sorted`, which reads two counts, and
-`to_host` and `to_device`, which move whole int32 arrays in one copy each:
-sizes that depend on the data are passed in by callers that have read them.
+`segment_sum_inorder` of `kernels/segment_sum.py`, the fixed doubling tree
+of `segsum_tree`), except `segment_sum_rows` on a CUDA tensor (a plain
+version, never on a card path), which adds with atomics.  None of these
+functions reads a value back to the host, apart from `to_host` and
+`to_device`, which move whole int32 arrays in one copy each: sizes that
+depend on the data are passed in by callers that have read them.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from spmm_tpu_torch.ops.kernels.segment_sum import (  # noqa: F401
+    segment_sum_inorder)
 
 INDEX_DTYPE = torch.int32
 
@@ -114,46 +117,6 @@ def compact_positions(flags: torch.Tensor, count: int) -> torch.Tensor:
     return out.scatter_(0, rank, src)[:count]
 
 
-def run_stats_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor
-                     ) -> Tuple[int, int]:
-    """(number of distinct (row, col) pairs, length of the longest run of
-    equal pairs) of lex-sorted coordinates, read to the host together (one
-    host sync on a card).  (0, 0) when empty."""
-    n = row_sorted.numel()
-    if n == 0:
-        return 0, 0
-    heads = new_group(row_sorted, col_sorted)
-    pos = torch.arange(n, device=row_sorted.device)
-    start = torch.cummax(torch.where(heads, pos, 0), 0).values
-    nout, max_run = torch.stack([heads.sum(), (pos - start).max() + 1]
-                                ).tolist()
-    return int(nout), int(max_run)
-
-
-def segment_sum_inorder(values: torch.Tensor, starts: torch.Tensor,
-                        lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    """Sum of the rows values[starts[s]:starts[s] + lengths[s]] of each
-    segment s, for values of shape (L,) or (L, W); an empty segment is 0.
-
-    Each segment is summed in order from +0.0, ((0 + v0) + v1) + v2 ...,
-    the order in which JAX's `segment_sum` and `.at[].add` add on the CPU,
-    so the bits are the JAX package's.  `max_len` (a host value) bounds
-    every length: the loop takes max_len steps, each one add over all
-    segments, with no atomics, so it is deterministic on every device."""
-    out = torch.zeros((starts.numel(), *values.shape[1:]), dtype=values.dtype,
-                      device=values.device)
-    if values.shape[0] == 0 or starts.numel() == 0:
-        return out
-    starts = starts.long()
-    last = values.shape[0] - 1
-    live_shape = (-1,) + (1,) * (values.dim() - 1)
-    for j in range(max_len):
-        live = (lengths > j).view(live_shape)
-        out = torch.where(live, out + values[(starts + j).clamp_(max=last)],
-                          out)
-    return out
-
-
 def _run_bounds(row_sorted, col_sorted, nout: int):
     """(first position, length) of each of the nout runs of equal pairs."""
     heads = new_group(row_sorted, col_sorted)
@@ -165,9 +128,9 @@ def _run_bounds(row_sorted, col_sorted, nout: int):
 
 
 def sum_duplicates_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor,
-                          data_sorted: torch.Tensor, nout: int, max_run: int):
-    """Collapse equal (row, col) runs by summation; `nout` and `max_run`
-    must be `run_stats_sorted(...)` (read on the host by the caller).
+                          data_sorted: torch.Tensor, nout: int):
+    """Collapse equal (row, col) runs by summation; `nout` must be
+    `count_unique_sorted(...)` (read on the host by the caller).
 
     Each run is summed in sorted order from +0.0 (`segment_sum_inorder`),
     as the JAX package's `jax.ops.segment_sum` does: the bits are JAX's for
@@ -176,7 +139,7 @@ def sum_duplicates_sorted(row_sorted: torch.Tensor, col_sorted: torch.Tensor,
         return row_sorted, col_sorted, data_sorted
     _, first_pos, lengths = _run_bounds(row_sorted, col_sorted, nout)
     return (row_sorted[first_pos], col_sorted[first_pos],
-            segment_sum_inorder(data_sorted, first_pos, lengths, max_run))
+            segment_sum_inorder(data_sorted, first_pos, lengths))
 
 
 def sum_duplicates_sorted_tree(row_sorted: torch.Tensor,

@@ -69,8 +69,8 @@ def multiply(a, b):
     row_s, col_s, (va_s, vb_s) = prim.lexsort_rowcol(
         torch.cat([ca.row, cb.row]), torch.cat([ca.col, cb.col]), (va, vb),
         a.shape)
-    nout, max_run = prim.run_stats_sorted(row_s, col_s)  # host sync
-    r, c, da = prim.sum_duplicates_sorted(row_s, col_s, va_s, nout, max_run)
-    _, _, db = prim.sum_duplicates_sorted(row_s, col_s, vb_s, nout, max_run)
+    nout = int(prim.count_unique_sorted(row_s, col_s))  # host sync
+    r, c, da = prim.sum_duplicates_sorted(row_s, col_s, va_s, nout)
+    _, _, db = prim.sum_duplicates_sorted(row_s, col_s, vb_s, nout)
     out = COO._wrap(r, c, da * db, a.shape, canonical=True).eliminate_zeros()
     return out.asformat(a.format)

@@ -14,7 +14,9 @@ machines without `nvcc`.
 
 `LAUNCHES` counts kernel launches per wrapper.  A wrapper adds one where it
 launches its kernel on a CUDA tensor, and nowhere else; the plain PyTorch
-versions used for CPU tensors do not count.
+versions used for CPU tensors do not count.  `launch` calls a kernel on the
+current stream, entering a device guard only where the tensors lie on
+another device than the current one.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -39,7 +43,7 @@ LAUNCHES = {"densify_onehot": 0, "densify_onehot_pattern": 0,
             "extract_roll": 0, "spmv_binned": 0,
             "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0,
             "expand_routed": 0, "compress_routed": 0, "bsr_spmm": 0,
-            "csr_densify_mxu": 0}
+            "csr_densify_mxu": 0, "segment_sum": 0, "spmv_binned_plan": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +58,10 @@ _SIGNATURES = {
     "spmm_extract_count": (_P, _P, _I, _I, _P),
     # c, mask, indptr, col, vals, m, n, cap, stream
     "spmm_extract_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # indptr, indices, data, x, rows, class_off, y, m, stream
-    "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # indptr, indices, data, x, rows, class_off, piece_end, piece_row,
+    # counters, partial, y, m, max_units, stream
+    "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _P),
     # slice_ptr, slice_rows, sell_col, sell_val, nslices,
     # indices, data, chunk_start, chunk_end, nchunks,
     # long_rows, long_chunk_ptr, nlong, x, partial, y, stream
@@ -65,10 +71,14 @@ _SIGNATURES = {
     # nchunks, long_rows, long_chunk_ptr, nlong, x, k, partial, y, stream
     "spmm_spmm_routed": (_P, _P, _P, _P, _I, _I, _P, _P, _I,
                          _P, _P, _I, _P, _I, _P, _P, _P),
-    # indptr, indices, data, x, row_s, row_e, nchunks, ch, nnz,
-    # carry_first, carry_last, y, stream
-    "spmm_spmv_onehot": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P),
+    # indptr, m, ntiles, tile_stats, rows, class_off, piece_end, piece_row,
+    # counters, stream
+    "spmm_spmv_binned_plan": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # indptr, indices, data, x, row_s, own, nchunks, ch, nnz, counters,
+    # carry, y, stream
+    "spmm_spmv_onehot": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P),
+    # values, starts, lengths, nseg, width, dtype, out, stream
+    "spmm_segment_sum": (_P, _P, _P, _L, _I, _I, _P, _P),
     # vals, pos, val, pat, nnz, stream
     "spmm_expand_routed": (_P, _P, _P, _P, _L, _P),
     # c, pos, prev, out, cap, alpha, beta, stream
@@ -161,6 +171,18 @@ def library() -> ctypes.CDLL:
     lib.spmm_error_string.argtypes = (ctypes.c_int,)
     lib.spmm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(index: int, name: str, *args) -> int:
+    """Call the library's `name` with `args` and the current stream of CUDA
+    device `index`; returns its error code."""
+    fn = getattr(library(), name)
+    current = torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)  # the raw handle
+    if index == current:
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def check(err: int, what: str) -> None:

@@ -52,3 +52,28 @@ def check_dense(x, ndim: int, n: int, device: torch.device,
     if x.device != device:
         raise ValueError(f"{what}: x is on {x.device}, the plan on "
                          f"{device}")
+
+
+def check_spmv_call(indptr, indices, data, x, on_plan, m: int, n: int,
+                    nnz: int, what: str) -> None:
+    """One SpMV call over a plan that was validated when it was built (for
+    an (m, n) matrix of nnz entries, with `on_plan` one of its tensors):
+    the CSR's and x's types, lengths, contiguity and device, read in one
+    expression, since this runs on every call; the detailed checks above
+    run only to word the error."""
+    dev = data.get_device()
+    if (isinstance(x, torch.Tensor)
+            and indptr.dtype == indices.dtype == prim.INDEX_DTYPE
+            and data.dtype == x.dtype == torch.float32
+            and indptr.shape == (m + 1,) and x.shape == (n,)
+            and indices.shape == data.shape == (nnz,)
+            and indptr.get_device() == indices.get_device() == dev
+            and x.get_device() == on_plan.get_device() == dev
+            and indptr.is_contiguous() and indices.is_contiguous()
+            and data.is_contiguous() and x.is_contiguous()):
+        return
+    check_csr(indptr, indices, data, m, what)
+    check_dense(x, 1, n, data.device, what)
+    raise ValueError(f"{what}: the plan is for a matrix with {nnz} entries "
+                     f"on {on_plan.device}, not {data.numel()} on "
+                     f"{data.device}")

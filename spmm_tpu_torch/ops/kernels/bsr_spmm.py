@@ -54,8 +54,7 @@ def _check(indptr, indices, blocks, b, m: int) -> None:
 def bsr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
                    blocks: torch.Tensor, b: torch.Tensor, m: int
                    ) -> torch.Tensor:
-    """Plain PyTorch version, on any device: (m, N) = A_bsr @ b.  One host
-    read (the most blocks in a block row)."""
+    """Plain PyTorch version, on any device: (m, N) = A_bsr @ b."""
     nblocks, R, C = blocks.shape
     mb = indptr.numel() - 1
     K, N = b.shape
@@ -68,7 +67,7 @@ def bsr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
         partial = torch.bmm(blocks, slabs)  # (nblocks, R, N)
     counts = indptr[1:] - indptr[:-1]
     sums = prim.segment_sum_inorder(partial.view(nblocks, R * N),
-                                    indptr[:-1], counts, int(counts.max()))
+                                    indptr[:-1], counts)
     return sums.view(mb * R, N)[:m]
 
 

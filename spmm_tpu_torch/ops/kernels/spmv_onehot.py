@@ -1,19 +1,22 @@
-"""SpMV over fixed entry chunks with row windows: balanced under any skew.
+"""SpMV over fixed entry chunks: balanced under any skew, one launch.
 
 Port of `spmm_tpu/ops/kernels/spmv_onehot.py` (`spmv_onehot_plan`, Pallas
 `spmv_onehot`).  The TPU kernel gathers x and reduces rows with one-hot MXU
 contractions over bf16 triples, because it can neither gather nor scatter;
 on Hopper both are native.  What carries over is the plan: the entries are
-cut into chunks of `ch`, and each chunk knows its row window, here the rows
-of its first and last entries (`row_s`, `row_e`; the TPU plan's `r0s` and
-`W`).  `csrc/spmv_onehot.cu` gives each chunk a block that writes the rows
-it holds whole and passes its two edge rows to a carry buffer, which a
-second small launch adds in chunk order.
+cut into chunks of `ch`, and each chunk knows its rows.  Here a chunk owns
+the rows whose first entry lies in it (`own`; the last chunk also the
+trailing empty rows) and knows the row of its first entry (`row_s`, the TPU
+plan's `r0s`).  `csrc/spmv_onehot.cu` gives each chunk a block that writes
+every row it owns once; a row running past its chunk is closed in the same
+launch by the last of its chunks to finish, picked by the plan's integer
+counters, so y needs no memset and a call is one launch.
 
-Not copied from the TPU plan: `W_MAX` (its row window must fit the VMEM
-accumulator) and the VMEM bounds on n and m, and its None for an empty
-matrix (the public `spmv_plan` keeps that None).  Any canonical f32 CSR
-gets a plan.  `ch` must be a positive multiple of 256, the kernel's block.
+The plan is validated once, when it is built; a call checks only what a
+launch needs to stay in bounds.  Not copied from the TPU plan: `W_MAX` (its
+row window must fit the VMEM accumulator) and the VMEM bounds on n and m,
+and its None for an empty matrix (the public `spmv_plan` keeps that None).
+Any canonical f32 CSR gets a plan.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
-from spmm_tpu_torch.ops.kernels._checks import check_csr, check_dense
+from spmm_tpu_torch.ops.kernels._checks import check_spmv_call
 
-CH_DEFAULT = 1024
+CH_DEFAULT = 2048
 BLOCK = 256
+CH_CHOICES = tuple(BLOCK << i for i in range(5))  # the kernel's chunk sizes
 
 
 class SpmvOnehotPlan(NamedTuple):
@@ -37,34 +41,49 @@ class SpmvOnehotPlan(NamedTuple):
     nnz: int
     ch: int                # entries per chunk
     row_s: torch.Tensor    # (nchunks,) i32 — row of each chunk's first entry
-    row_e: torch.Tensor    # (nchunks,) i32 — row of each chunk's last entry
+    own: torch.Tensor      # (nchunks+1,) i32 — first row each chunk owns
+    counters: torch.Tensor  # (nchunks,) i32 — zeros; one per chunk's last row
+    carry: torch.Tensor    # (2*nchunks,) f32 — scratch: edge pieces
 
     @property
     def nchunks(self) -> int:
         return int(self.row_s.numel())
 
 
-def spmv_onehot_plan(indptr, m: int, n: int,
-                     ch: int = CH_DEFAULT) -> SpmvOnehotPlan:
-    """Chunk plan of a CSR's indptr (a tensor, on its device, or a host
-    array), with one host read of nnz."""
-    if ch < BLOCK or ch % BLOCK:
-        raise ValueError(f"spmv_onehot_plan: ch must be a positive multiple "
-                         f"of {BLOCK}, got {ch}")
-    if not isinstance(indptr, torch.Tensor):
-        indptr = torch.as_tensor(np.asarray(indptr, np.int32))
-    if indptr.dtype != prim.INDEX_DTYPE or indptr.numel() != m + 1:
+def spmv_onehot_plan(indptr, m: int, n: int, ch: int = CH_DEFAULT,
+                     device=None) -> SpmvOnehotPlan:
+    """Chunk plan of a CSR's indptr, with one host read of nnz.
+
+    A tensor's plan lies on the tensor's device (or on `device`, where it
+    is given); a host array's plan goes to the card unless `device="cpu"`
+    is given, and raises where there is no card, as the constructors do."""
+    from spmm_tpu_torch.sparse.base import checked_device
+
+    if ch not in CH_CHOICES:
+        raise ValueError(f"spmv_onehot_plan: ch must be a multiple of "
+                         f"{BLOCK}, one of {CH_CHOICES}, got {ch}")
+    if isinstance(indptr, torch.Tensor):
+        if device is not None:
+            indptr = indptr.to(checked_device(device))
+    else:
+        indptr = torch.as_tensor(np.asarray(indptr, np.int32),
+                                 device=checked_device(device or "cuda"))
+    if indptr.dtype != prim.INDEX_DTYPE or indptr.dim() != 1 \
+            or indptr.numel() != m + 1:
         raise ValueError(f"spmv_onehot_plan: indptr must be int32 with "
                          f"{m + 1} entries")
     nnz = int(indptr[-1])
-    starts = torch.arange(0, nnz, ch, dtype=torch.int64,
-                          device=indptr.device)
-    lasts = torch.clamp(starts + ch, max=nnz) - 1
+    nchunks = max(1, -(-nnz // ch))
+    dev = indptr.device
+    starts = torch.arange(nchunks, dtype=torch.int64, device=dev) * ch
     ip = indptr.long()
-    row_s = torch.searchsorted(ip, starts, right=True) - 1
-    row_e = torch.searchsorted(ip, lasts, right=True) - 1
-    return SpmvOnehotPlan(m, n, nnz, ch, row_s.to(prim.INDEX_DTYPE),
-                          row_e.to(prim.INDEX_DTYPE))
+    row_s = (torch.searchsorted(ip, starts, right=True) - 1).clamp_(0)
+    own = torch.searchsorted(ip[:-1], starts)
+    own = torch.cat([own, own.new_full((1,), m)])
+    return SpmvOnehotPlan(
+        m, n, nnz, ch, row_s.to(prim.INDEX_DTYPE), own.to(prim.INDEX_DTYPE),
+        torch.zeros(nchunks, dtype=prim.INDEX_DTYPE, device=dev),
+        torch.empty(2 * nchunks, dtype=torch.float32, device=dev))
 
 
 def spmv_onehot_plain(indptr, indices, data, x, m: int, n: int,
@@ -77,30 +96,22 @@ def spmv_onehot(indptr: torch.Tensor, indices: torch.Tensor,
                 data: torch.Tensor, x: torch.Tensor, m: int, n: int,
                 plan: SpmvOnehotPlan) -> torch.Tensor:
     """y = A @ x, (m,) f32, for a canonical CSR A (m, n) and its plan."""
-    check_csr(indptr, indices, data, m, "spmv_onehot")
-    check_dense(x, 1, n, data.device, "spmv_onehot")
-    if (plan.m, plan.n, plan.nnz) != (m, n, data.numel()):
+    if (plan.m, plan.n) != (m, n):
         raise ValueError(f"spmv_onehot: the plan is for a {plan.m}x{plan.n} "
-                         f"matrix with {plan.nnz} entries, not {m}x{n} with "
-                         f"{data.numel()}")
-    if plan.row_s.device != data.device:
-        raise ValueError(f"spmv_onehot: the plan is on {plan.row_s.device}, "
-                         f"the matrix on {data.device}")
-    if data.device.type == "cpu":
+                         f"matrix, not {m}x{n}")
+    check_spmv_call(indptr, indices, data, x, plan.own, m, n, plan.nnz,
+                    "spmv_onehot")
+    if not data.is_cuda:
         return spmv_onehot_plain(indptr, indices, data, x, m, n, plan)
-    y = torch.zeros(m, dtype=torch.float32, device=data.device)
-    nchunks = plan.nchunks
-    if nchunks == 0:
-        return y  # no entries; a zero-size grid is a launch error
-    carry = torch.zeros((2, nchunks), dtype=torch.float32, device=data.device)
-    lib = _build.library()
-    with torch.cuda.device(data.device):
-        err = lib.spmm_spmv_onehot(
-            indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-            x.data_ptr(), plan.row_s.data_ptr(), plan.row_e.data_ptr(),
-            nchunks, plan.ch, plan.nnz, carry[0].data_ptr(),
-            carry[1].data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    y = data.new_empty(m)
+    if m == 0:
+        return y  # a zero-size grid is a launch error
+    err = _build.launch(
+        data.get_device(), "spmm_spmv_onehot", indptr.data_ptr(),
+        indices.data_ptr(), data.data_ptr(), x.data_ptr(),
+        plan.row_s.data_ptr(), plan.own.data_ptr(), plan.nchunks,
+        plan.ch, plan.nnz, plan.counters.data_ptr(), plan.carry.data_ptr(),
+        y.data_ptr())
     _build.check(err, "spmv_onehot")
     _build.LAUNCHES["spmv_onehot"] += 1
     return y

@@ -100,14 +100,12 @@ def axis_sum(keys: torch.Tensor, data: torch.Tensor, n: int) -> torch.Tensor:
     """(n,) sums of `data` grouped by `keys` in [0, n): a stable sort on the
     key keeps the stored order within a key, then each key's values are
     added in that order from 0, as JAX's `zeros.at[keys].add(data)` adds
-    them on the CPU.  One host read (the longest group)."""
+    them on the CPU.  O(entries) after the sort, no host read."""
     order = torch.sort(keys, stable=True).indices
     keys_s = keys[order]
     bounds = torch.arange(n + 1, dtype=keys_s.dtype, device=keys.device)
     ptr = torch.searchsorted(keys_s, bounds)
-    lengths = ptr[1:] - ptr[:-1]
-    max_len = int(lengths.max()) if n and keys.numel() else 0
-    return prim.segment_sum_inorder(data[order], ptr[:-1], lengths, max_len)
+    return prim.segment_sum_inorder(data[order], ptr[:-1], ptr[1:] - ptr[:-1])
 
 
 class SparseMatrix:

@@ -117,10 +117,10 @@ class COO(SparseMatrix):
                              canonical=True)
         row_s, col_s, (data_s,) = prim.lexsort_rowcol(
             self.row, self.col, (self.data,), self._shape)
-        nout, max_run = prim.run_stats_sorted(row_s, col_s)  # host sync
+        nout = int(prim.count_unique_sorted(row_s, col_s))  # host sync
         if nout != self.nnz:
             row_s, col_s, data_s = prim.sum_duplicates_sorted(
-                row_s, col_s, data_s, nout, max_run)
+                row_s, col_s, data_s, nout)
         return COO._wrap(row_s, col_s, data_s, self._shape, canonical=True)
 
     def eliminate_zeros(self) -> "COO":

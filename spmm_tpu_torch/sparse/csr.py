@@ -246,7 +246,16 @@ class CSR(_Compressed):
         return CSR._wrap(indptr, indices, data, (n, m), canonical=True)
 
     def getrow(self, i: int) -> "CSR":
-        """Row i as a (1, n) CSR (two host reads of indptr)."""
+        """Row i as a (1, n) CSR (one host read of indptr), as scipy's:
+        i truncated as `int()` does, a negative i counted from the end, an
+        index outside [-m, m) an IndexError (JAX's `getrow` returns a
+        corrupt empty row there)."""
+        m = self._shape[0]
+        given = i = int(i)
+        if i < 0:
+            i += m
+        if not 0 <= i < m:
+            raise IndexError(f"row index ({given}) out of range for {m} rows")
         start, end = self.indptr[i:i + 2].tolist()
         indptr = torch.tensor([0, end - start], dtype=INDEX_DTYPE,
                               device=self.device)
@@ -261,11 +270,10 @@ class CSR(_Compressed):
 
 
 def diagonal_of(coo, k: int) -> torch.Tensor:
-    """Diagonal k of a COO: the entries with col == row + k, each added in
-    stored order into a zero vector (the in-order `axis_sum`)."""
+    """Diagonal k of a COO: the entries with col == row + k, kept in stored
+    order (a mask and a compaction, one host sync on a card), each added in
+    that order into a zero vector (the in-order `axis_sum`)."""
     m, n = coo.shape
     size = max(0, min(m + min(k, 0), n - max(k, 0)))
     on_diag = coo.col == coo.row + k
-    target = torch.where(on_diag, coo.col - max(k, 0), size)
-    data = torch.where(on_diag, coo.data, torch.zeros_like(coo.data))
-    return axis_sum(target, data, size + 1)[:size]
+    return axis_sum(coo.col[on_diag] - max(k, 0), coo.data[on_diag], size)

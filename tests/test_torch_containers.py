@@ -183,6 +183,62 @@ def test_csr_reductions(fmt):
         got.sum(axis=2)
 
 
+@pytest.mark.parametrize("i", [-1, -20, 19, 3.7, -1.2])
+def test_csr_getrow_out_of_order_indices_as_scipy(i):
+    # scipy's getrow: int() of the index, negative from the end; JAX's
+    # getrow returns a corrupt empty row for a negative index, so the port
+    # pins scipy's behaviour
+    _, got = sparse_pair(20, 20, 0.15, 0)
+    ref = got.to_scipy().tocsr()
+    want = ref.getrow(i)
+    row = got.getrow(i)
+    assert row.shape == want.shape == (1, 20)
+    np.testing.assert_array_equal(_dense(row), want.toarray())
+
+
+@pytest.mark.parametrize("i", [20, -21, 1000])
+def test_csr_getrow_out_of_range_raises_as_scipy(i):
+    _, got = sparse_pair(20, 20, 0.15, 0)
+    with pytest.raises(IndexError):
+        got.to_scipy().tocsr().getrow(i)
+    with pytest.raises(IndexError, match="out of range"):
+        got.getrow(i)
+
+
+def test_diagonal_is_linear_and_jax_bitwise():
+    # 1024^2/0.1 (105 k entries): the off-diagonal entries are dropped
+    # before the in-order sum, so the cost follows the entries
+    import time
+
+    want, got = sparse_pair(1024, 1024, 0.1, 5)
+    t0 = time.perf_counter()
+    diag = got.diagonal()
+    elapsed = time.perf_counter() - t0
+    assert elapsed < 0.5, elapsed
+    assert_bitwise(diag, np.asarray(want.diagonal()))
+    for k in (3, -7):
+        assert_bitwise(got.diagonal(k), np.asarray(want.diagonal(k)))
+
+
+def test_axis_sum_is_linear_and_jax_bitwise():
+    # a power-law matrix whose longest row holds 2^16 entries: the in-order
+    # axis sums cost O(entries), not (longest row) x (rows)
+    import importlib
+    import time
+
+    from spmm_tpu_torch.models import power_law_rows
+
+    jax_models = importlib.import_module("spmm_tpu.models.matrices")
+    got = power_law_rows(1 << 16, 1 << 16, 16, seed=0, device="cpu")
+    want = jax_models.power_law_rows(1 << 16, 1 << 16, 16, seed=0)
+    t0 = time.perf_counter()
+    rows = got.sum(axis=1)
+    elapsed = time.perf_counter() - t0
+    assert elapsed < 2.0, elapsed
+    assert_bitwise(rows, np.asarray(want.sum(axis=1)))
+    assert_bitwise(got.sum(axis=0), np.asarray(want.sum(axis=0)))
+
+
 def test_csr_scalar_ops():
     want, got = sparse_pair(40, 30, 0.15, 0)
     for g, w in ((got * 2.0, want * 2.0), (2.0 * got, 2.0 * want),

@@ -160,21 +160,32 @@ SPMV_EDGE = {
     "full_row": (3, 5000, np.array([0, 0, 5000, 5000])),
     "n_odd": (77, 45, None),
     "hub_and_empty": (300, 3000, None),
+    # empty leading and trailing rows around rows that span many chunks
+    "span_chunks": (60, 3000, None),
+    # rows of 1, 2 and 4 binned pieces (4096 entries each)
+    "hub_pieces": (40, 13000, None),
 }
 
 
 def _edge_arrays(name):
     """(indptr, indices, data) of an edge case: an empty matrix, one row,
-    a full row of n entries between empty rows, n not a multiple of 32, and
-    a few long rows among many empty ones."""
+    a full row of n entries between empty rows, n not a multiple of 32, a
+    few long rows among many empty ones, rows spanning many chunks between
+    empty leading and trailing rows, and rows of several binned pieces."""
     m, n, indptr = SPMV_EDGE[name]
     rng = np.random.default_rng(len(name))
     if indptr is None:
+        lens = np.zeros(m, np.int64)
         if name == "hub_and_empty":
-            lens = np.zeros(m, np.int64)
             lens[[3, 100, 299]] = [n, 1500, 700]
             lens[rng.choice(m, 40, replace=False)] += rng.integers(1, 9, 40)
             lens = np.minimum(lens, n)
+        elif name == "span_chunks":
+            lens[[5, 6, 30, 40]] = [2900, 1, 2000, 256]
+            lens[10:25] = rng.integers(0, 40, 15)
+        elif name == "hub_pieces":
+            lens[[2, 3, 9, 20]] = [12295, 4096, 4097, 2049]
+            lens[25:35] = rng.integers(0, 70, 10)
         else:
             lens = rng.integers(0, min(n, 30), m)
         indptr = np.concatenate([[0], np.cumsum(lens)])
@@ -237,13 +248,153 @@ def test_spmv_kernels_vs_plain_on_card(dev, kernel, k, name):
     got, plain = _spmv_kernel(kernel, arrays, x)
     again, _ = _spmv_kernel(kernel, arrays, x)
     torch.cuda.synchronize()
-    # an empty matrix gives onehot no chunks, so nothing to launch
-    launched = 0 if kernel == "onehot" and not host[1].size else 2
-    assert _build.LAUNCHES[key] == before + launched
+    # one launch a call, an empty matrix included (its rows are written 0)
+    assert _build.LAUNCHES[key] == before + 2
     assert got.shape == plain.shape and got.device == x.device
     assert_bitwise(got, again)
     _assert_rowwise(got, (m, n, *host), x)
     _assert_rowwise(plain, (m, n, *host), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["span_chunks", "hub_pieces", "empty",
+                                  "m1"])
+def test_onehot_every_chunk_size_on_card(dev, name):
+    from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+
+    m, n, *host = _edge_arrays(name)
+    indptr, indices, data = _on(dev, *host)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(n).astype(
+        np.float32)).to(dev)
+    for ch in ko.CH_CHOICES:
+        p = ko.spmv_onehot_plan(indptr, m, n, ch=ch)
+        got = ko.spmv_onehot(indptr, indices, data, x, m, n, p)
+        again = ko.spmv_onehot(indptr, indices, data, x, m, n, p)
+        torch.cuda.synchronize()
+        assert_bitwise(got, again)
+        assert not p.counters.any()  # every closing block reset its counter
+        _assert_rowwise(got, (m, n, *host), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SPMV_EDGE))
+def test_binned_plan_kernels_match_plain(dev, name):
+    from spmm_tpu_torch.ops.kernels import spmv_binned as kb
+
+    m, n, *host = _edge_arrays(name)
+    indptr, indices, data = _on(dev, *host)
+    before = _build.LAUNCHES["spmv_binned_plan"]
+    p = kb.spmv_binned_plan(indptr, indices, data, m, n)
+    assert _build.LAUNCHES["spmv_binned_plan"] == before + 1
+    rows, class_off, piece_end, piece_row, _ = kb.spmv_binned_plan_plain(
+        indptr, m, p.piece_row.numel())
+    torch.cuda.synchronize()
+    for got, want in ((p.rows, rows), (p.class_off, class_off),
+                      (p.piece_end, piece_end)):
+        assert_bitwise(got, want)
+    total = int(piece_end[-1])
+    assert_bitwise(p.piece_row[:total], piece_row[:total])
+    # each cut row's counter, at its first piece, is 0 for the first launch
+    hubs = p.rows[int(class_off[-2]):].long()
+    first = torch.cat([piece_end.new_zeros(1), piece_end[:-1]])[hubs].long()
+    assert not p.counters[first].any()
+
+
+def _device_events(fn):
+    """(kernel names, memset count) of one call of `fn` in a torch.profiler
+    trace, or None where the trace holds no device events."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, memsets = [], 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memset" in e.name.lower():
+            memsets += 1
+        elif "memcpy" not in e.name.lower():
+            kernels.append(e.name)
+    if not kernels and not memsets:
+        return None
+    return kernels, memsets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["binned", "onehot"])
+def test_spmv_call_is_one_launch_and_no_memset(dev, kernel):
+    from spmm_tpu_torch.ops.kernels import spmv_binned as kb
+    from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+
+    m, n, *host = _edge_arrays("hub_pieces")
+    indptr, indices, data = _on(dev, *host)
+    x = torch.ones(n, device=dev)
+    if kernel == "binned":
+        p = kb.spmv_binned_plan(indptr, indices, data, m, n)
+        call = lambda: kb.spmv_binned(x, p)  # noqa: E731
+    else:
+        p = ko.spmv_onehot_plan(indptr, m, n)
+        call = lambda: ko.spmv_onehot(  # noqa: E731
+            indptr, indices, data, x, m, n, p)
+    key = f"spmv_{kernel}"
+    before = _build.LAUNCHES[key]
+    call()
+    assert _build.LAUNCHES[key] == before + 1
+    seen = _device_events(call)
+    if seen is None:
+        pytest.skip("the profiler's trace holds no device events here")
+    kernels, memsets = seen
+    assert memsets == 0 and len(kernels) == 1, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32, torch.int64, torch.float16,
+                                   torch.bfloat16, torch.complex64,
+                                   torch.bool])
+def test_segment_sum_kernel_bitwise_vs_plain(dev, dtype):
+    from spmm_tpu_torch.ops.kernels.segment_sum import (
+        segment_sum_inorder, segment_sum_inorder_plain)
+
+    rng = np.random.default_rng(6)
+    lengths = rng.integers(0, 12, 900)
+    lengths[[3, 500]] = [3000, 0]  # one long segment, empty ones
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    base = torch.from_numpy(rng.standard_normal((int(lengths.sum()), 3)))
+    if dtype in (torch.float32, torch.float64, torch.complex64):
+        # magnitudes spread over e^+-8: the order of the adds shows
+        vals = (base * torch.from_numpy(np.exp(rng.uniform(-8, 8, 3)))).to(
+            dtype)
+    elif dtype == torch.bool:
+        vals = base > 0.5
+    else:  # half types near 1, integers small: no overflow in 3000 adds
+        vals = (base if dtype.is_floating_point else base * 10).to(dtype)
+    for v in (vals[:, 0].contiguous(), vals):
+        args = (v, torch.from_numpy(starts), torch.from_numpy(lengths))
+        want = segment_sum_inorder_plain(*args)
+        before = _build.LAUNCHES["segment_sum"]
+        got = segment_sum_inorder(*(t.to(dev) for t in args))
+        assert _build.LAUNCHES["segment_sum"] == before + 1
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_axis_sums_and_diagonal_on_card_vs_cpu(dev):
+    from spmm_tpu_torch.models import power_law_rows
+
+    a = power_law_rows(1 << 14, 1 << 14, 16, seed=1, device="cpu")
+    b = a.to(dev)
+    _build.reset_launches()
+    for axis in (0, 1):
+        assert_bitwise(b.sum(axis=axis), a.sum(axis=axis))
+    for k in (0, 5, -3):
+        assert_bitwise(b.diagonal(k), a.diagonal(k))
+    assert _build.LAUNCHES["segment_sum"] == 5
 
 
 @pytest.mark.gpu
@@ -259,24 +410,29 @@ def test_spmv_wrappers_reject_other_devices(dev):
         kr.spmm_routed(torch.ones((4, n), device=dev).T, p)
 
 
+# spmv through a plan made for the call: the two plan kernels (counted
+# once) and the SpMV kernel
+BINNED = {"spmv_binned": 1, "spmv_binned_plan": 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("call,counts", [
-    (lambda a, x, X: pt.spmv(a, x), {"spmv_binned": 1}),
-    (lambda a, x, X: pt.spmv(a, x, via="csr"), {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x), BINNED),
+    (lambda a, x, X: pt.spmv(a, x, via="csr"), BINNED),
     (lambda a, x, X: pt.spmv(a, x, plan=pt.spmv_plan(a)),
      {"spmv_routed": 1}),
     (lambda a, x, X: pt.spmv(a, x, plan=pt.spmv_plan(a, effort="fast")),
-     {"spmv_binned": 1}),
+     BINNED),
     (lambda a, x, X: pt.spmv(a, x, via="onehot"), {"spmv_onehot": 1}),
-    (lambda a, x, X: pt.spmv(a, x[:40], transa=True), {"spmv_binned": 1}),
+    (lambda a, x, X: pt.spmv(a, x[:40], transa=True), BINNED),
     (lambda a, x, X: pt.spmv(a, x, via="dense"), {"densify_onehot": 1}),
     (lambda a, x, X: pt.spmm(a, X), {"spmm_routed": 1}),
     (lambda a, x, X: pt.spmm(a, X, plan=pt.spmv_plan(a)),
      {"spmm_routed": 1}),
     (lambda a, x, X: pt.spmm(a, X[:40], transa=True), {"spmm_routed": 1}),
-    (lambda a, x, X: a @ x, {"spmv_binned": 1}),
+    (lambda a, x, X: a @ x, BINNED),
     (lambda a, x, X: pt.matmul(a, X, mode="sparse"), {"spmm_routed": 1}),
-    (lambda a, x, X: x[:40] @ a, {"spmv_binned": 1}),
+    (lambda a, x, X: x[:40] @ a, BINNED),
     (lambda a, x, X: X[:40].T @ a, {"spmm_routed": 1}),
 ])
 def test_entry_points_launch_kernels_and_rerun_bitwise(dev, call, counts):
@@ -718,10 +874,9 @@ def test_in_order_sum_on_card_bitwise_vs_cpu(dev):
     starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
     for v in (vals[:, 0], vals):
         args = (torch.from_numpy(v), torch.from_numpy(starts),
-                torch.from_numpy(lengths), int(lengths.max()))
+                torch.from_numpy(lengths))
         want = prim.segment_sum_inorder(*args)
-        got = prim.segment_sum_inorder(*(t.to(dev) if torch.is_tensor(t)
-                                         else t for t in args))
+        got = prim.segment_sum_inorder(*(t.to(dev) for t in args))
         assert_bitwise(got, want)
     row, col, data = coo_arrays(60, 50, 0.4, 2)
     row, col = row % 7, col % 5  # runs of up to dozens of duplicates

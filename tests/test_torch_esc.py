@@ -327,11 +327,8 @@ def test_sum_duplicates_sorted_vs_jax(max_run):
     nout = int(jax_prim.count_unique_sorted(r, c))
     want = jax_prim.sum_duplicates_sorted(r, c, d, nout)
     r_t, c_t, d_t = (torch.from_numpy(np.array(x)) for x in (r, c, d))
-    stats = prim.run_stats_sorted(r_t, c_t)
-    assert stats == (nout, int(np.diff(np.flatnonzero(np.r_[
-        True, (np.diff(np.asarray(r)) != 0) | (np.diff(np.asarray(c)) != 0),
-        True])).max()))
-    got = prim.sum_duplicates_sorted(r_t, c_t, d_t, *stats)
+    assert int(prim.count_unique_sorted(r_t, c_t)) == nout
+    got = prim.sum_duplicates_sorted(r_t, c_t, d_t, nout)
     for x, y in zip(got, want):
         assert_bitwise(x, np.asarray(y))
     # ESC's helper keeps the doubling tree, bit for bit JAX's segsum_tree
@@ -356,13 +353,13 @@ def test_sum_duplicates_in_order_rounding(vals, want_bits):
     want = jax_prim.sum_duplicates_sorted(r, r, d, 1)[2]
     assert np.asarray(want).view(np.uint32).tolist() == want_bits
     r_t, d_t = torch.from_numpy(r), torch.from_numpy(d)
-    got = prim.sum_duplicates_sorted(r_t, r_t, d_t,
-                                     *prim.run_stats_sorted(r_t, r_t))
+    got = prim.sum_duplicates_sorted(
+        r_t, r_t, d_t, int(prim.count_unique_sorted(r_t, r_t)))
     assert_bitwise(got[2], np.asarray(want))
     # the (L, W) form sums each column the same way
     wide = prim.segment_sum_inorder(torch.stack([d_t, d_t], 1),
                                     torch.zeros(1, dtype=torch.long),
-                                    torch.tensor([d.size]), d.size)
+                                    torch.tensor([d.size]))
     assert_bitwise(wide, np.repeat(np.asarray(want), 2).reshape(1, 2))
 
 

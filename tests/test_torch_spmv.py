@@ -29,7 +29,7 @@ from spmm_tpu.ops.kernels import spmv_routed as jax_routed  # noqa: E402
 from spmm_tpu_torch.ops import _primitives as prim  # noqa: E402
 from spmm_tpu_torch.ops.kernels import _build  # noqa: E402
 from spmm_tpu_torch.ops.kernels.spmv_binned import (  # noqa: E402
-    CLASS_BOUNDS, spmv_binned, spmv_binned_plan)
+    CLASS_BOUNDS, PIECE, spmv_binned, spmv_binned_plan)
 from spmm_tpu_torch.ops.kernels.spmv_onehot import (  # noqa: E402
     spmv_onehot, spmv_onehot_plan)
 from spmm_tpu_torch.ops.kernels.spmv_routed import (  # noqa: E402
@@ -184,9 +184,25 @@ def test_routed_plan_layout(name):
     assert p.slack == p.slots / max(len(data), 1) and p.slack >= 1.0
 
 
-@pytest.mark.parametrize("name", ["1000x1000", "empty_rows", "powerlaw"])
+def _hub_arrays():
+    """A CSR whose rows reach past CLASS_BOUNDS[-1]: rows of 1, 2 and 3
+    pieces of PIECE entries between empty and short rows (n = 3 * PIECE)."""
+    n = 3 * PIECE
+    rng = np.random.default_rng(12)
+    lens = np.array([0, 3, PIECE, 0, 2 * PIECE + 5, 70, CLASS_BOUNDS[-1] + 1,
+                     3 * PIECE, 1, 0])
+    indices = np.concatenate([np.sort(rng.choice(n, ln, replace=False))
+                              for ln in lens]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    data = rng.standard_normal(indices.size).astype(np.float32)
+    return indptr, indices, data, lens.size, n
+
+
+@pytest.mark.parametrize("name", ["1000x1000", "empty_rows", "powerlaw",
+                                  "hubs"])
 def test_binned_plan_partitions_rows_by_length(name):
-    indptr, indices, data, m, n = _arrays(name)
+    indptr, indices, data, m, n = (_hub_arrays() if name == "hubs"
+                                   else _arrays(name))
     p = spmv_binned_plan(*_t(indptr, indices, data), m, n)
     off = p.class_off.tolist()
     rows = p.rows.numpy()
@@ -198,19 +214,110 @@ def test_binned_plan_partitions_rows_by_length(name):
         got = rows[off[c]:off[c + 1]]
         assert (np.diff(got) > 0).all()  # stable: row order kept
         assert ((lens[got] > bounds[c]) & (lens[got] <= bounds[c + 1])).all()
+    # the hub pieces: each class-3 row cut into ceil(len / PIECE) pieces,
+    # numbered contiguously and in row order; nothing else has a piece
+    hubs = rows[off[-2]:]
+    pieces = np.where(lens > CLASS_BOUNDS[-1], -(-lens // PIECE), 0)
+    assert_bitwise(p.piece_end, np.cumsum(pieces).astype(np.int32))
+    total = int(pieces.sum())
+    assert p.piece_row.numel() == p.counters.numel() == p.partial.numel()
+    assert p.piece_row.numel() >= total
+    assert p.piece_row[:total].tolist() == np.repeat(np.arange(m),
+                                                     pieces).tolist()
+    assert sorted(set(p.piece_row[:total].tolist())) == hubs.tolist()
+    # each row's pieces tile it in order: piece k spans
+    # [indptr[r] + k*PIECE, min(indptr[r] + (k+1)*PIECE, indptr[r+1]))
+    for r in hubs:
+        k = np.arange(pieces[r])
+        starts = indptr[r] + k * PIECE
+        ends = np.minimum(starts + PIECE, indptr[r + 1])
+        assert starts[0] == indptr[r] and ends[-1] == indptr[r + 1]
+        assert (starts[1:] == ends[:-1]).all() and (ends > starts).all()
+    assert not p.counters.any()  # the counters start at zero
+    units = (-(-(off[3] - off[2]) // 8) + -(-(off[2] - off[1]) // 32)
+             + -(-(off[1] - off[0]) // 256) + total)
+    assert units <= p.max_units
 
 
-def test_onehot_plan_row_windows():
+@pytest.mark.parametrize("ch", [256, 1024])
+def test_onehot_plan_row_windows(ch):
     indptr, _, _, m, n = _arrays("empty_rows")
-    p = spmv_onehot_plan(indptr, m, n, ch=256)
+    p = spmv_onehot_plan(indptr, m, n, ch=ch, device="cpu")
+    assert p.own.device.type == "cpu"
     nnz = indptr[-1]
-    starts = np.arange(0, nnz, 256)
-    ends = np.minimum(starts + 256, nnz) - 1
+    starts = np.arange(0, nnz, ch)
     rows = np.repeat(np.arange(m), np.diff(indptr))
     assert p.row_s.tolist() == rows[starts].tolist()
-    assert p.row_e.tolist() == rows[ends].tolist()
+    # every row is owned by exactly one chunk: the chunk holding its first
+    # entry, and the last chunk also the trailing rows at indptr == nnz
+    own = p.own.numpy()
+    assert own[0] == 0 and own[-1] == m and (np.diff(own) >= 0).all()
+    owner = np.repeat(np.arange(p.nchunks), np.diff(own))
+    assert owner.size == m
+    want = np.minimum(indptr[:-1] // ch, p.nchunks - 1)
+    assert owner.tolist() == want.tolist()
+    assert p.counters.tolist() == [0] * p.nchunks
+    assert p.carry.numel() == 2 * p.nchunks
     with pytest.raises(ValueError, match="multiple"):
-        spmv_onehot_plan(indptr, m, n, ch=100)
+        spmv_onehot_plan(indptr, m, n, ch=100, device="cpu")
+    # a tensor's plan lies where the tensor does
+    assert spmv_onehot_plan(torch.from_numpy(indptr), m, n,
+                            ch=ch).own.device.type == "cpu"
+
+
+def test_onehot_plan_of_host_array_goes_to_the_card():
+    # as the constructors: a host array's plan is made on the card, and
+    # raises where there is none
+    indptr, _, _, m, n = _arrays("300x256")
+    if torch.cuda.is_available():
+        assert spmv_onehot_plan(indptr, m, n).own.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            spmv_onehot_plan(indptr, m, n)
+
+
+def test_onehot_plan_of_empty_and_one_row():
+    # no entries: one chunk owns every row; m = 1: the chunk owns row 0
+    for indptr in (np.zeros(5, np.int32), np.array([0, 700], np.int32)):
+        m = indptr.size - 1
+        p = spmv_onehot_plan(indptr, m, 9, ch=256, device="cpu")
+        assert p.own.tolist()[0] == 0 and p.own.tolist()[-1] == m
+        assert p.nchunks == max(1, -(-int(indptr[-1]) // 256))
+
+
+def test_onehot_call_checks_against_its_plan():
+    # the plan is validated when it is built; a call still refuses arrays
+    # that do not fit it
+    indptr, indices, data, m, n = _arrays("300x256")
+    ti, tx, td = _t(indptr, indices, data)
+    p = spmv_onehot_plan(ti, m, n, ch=256)
+    x = torch.ones(n)
+    with pytest.raises(ValueError, match="x has"):
+        spmv_onehot(ti, tx, td, torch.ones(n + 1), m, n, p)
+    with pytest.raises(ValueError, match="plan is for"):
+        spmv_onehot(ti, tx[:-1], td[:-1], x, m, n, p)
+    with pytest.raises(ValueError, match="plan is for"):
+        spmv_onehot(ti, tx, td, torch.ones(n + 1), m, n + 1, p)
+    with pytest.raises(ValueError, match="float32"):
+        spmv_onehot(ti, tx, td.double(), x, m, n, p)
+
+
+@pytest.mark.parametrize("kernel", ["binned", "onehot"])
+def test_plain_paths_match_jax_on_hub_rows(kernel):
+    # rows of up to 3 pieces among empty and short ones, against the JAX
+    # package's spmv of the same arrays
+    indptr, indices, data, m, n = _hub_arrays()
+    x = _x(n, seed=3)
+    ti, tx, td = _t(indptr, indices, data)
+    if kernel == "binned":
+        got = spmv_binned(torch.from_numpy(x),
+                          spmv_binned_plan(ti, tx, td, m, n))
+    else:
+        got = spmv_onehot(ti, tx, td, torch.from_numpy(x), m, n,
+                          spmv_onehot_plan(ti, m, n, ch=1024))
+    want = st.spmv(st.CSR.from_parts(indptr, indices, data, (m, n),
+                                     canonical=True), jnp.asarray(x))
+    _assert_kernel_close(got, want, indptr, indices, data, x)
 
 
 @pytest.mark.parametrize("kernel", ["routed", "binned", "onehot",
