@@ -36,9 +36,11 @@ for each:
      rerun, and `sum(axis=1)` of the power-law matrix and `diagonal()`
      bitwise the CPU's, with every kernel's launch count as expected;
   6. their CUDA-event timings: each kernel against its plain version and
-     `torch.mv` (cuSPARSE) in turns, per call (an event pair around one
-     call, the host's wrapper included) and per call of 200 back to back,
-     the kernels' device busy time from a profiler trace, each cell's bound,
+     `torch.mv` (cuSPARSE) in turns (`spmv_binned`, `spmv_onehot` and
+     `spmv_routed`), per call (an event pair around one call, the host's
+     wrapper included) and per call of 200 back to back, the kernels'
+     device busy time from a profiler trace (`spmv_routed`'s by kernel
+     name too), each cell's bound,
      `spmv_onehot` at chunk sizes 1024-4096, `spmv` by plan tag and end to
      end, plan builds on the host clock, Gnnz/s and G MAC/s, the device's
      busy time and idle share; `diagonal()`, `sum(axis=1)` and
@@ -46,7 +48,9 @@ for each:
   7. fixed-structure serving, `spgemm_plan(A, B)`, at SpGEMM 1024^2/0.1,
      8192^2/1e-3 and an edge pair (explicit zeros, empty rows and columns)
      plus an empty output: `expand_routed` / `compress_routed` bitwise
-     against their plain versions (the fused accumulate form included);
+     against their plain versions (the fused accumulate form included, also
+     written in place; `compress_routed` with the plan's int32 positions
+     and with int64 ones);
      plan calls against scipy, bitwise on rerun, with fresh values on the
      same structure, `values_accumulate`, `values_batch` (K = 8, each row
      bitwise a single call) and launch counts; whether the plan's output
@@ -57,9 +61,12 @@ for each:
      port's own CPU run of the same calls;
   9. their CUDA-event timings: plan call, `values`, `values_batch` per
      multiply, plan build (host clock), each routed kernel against its
-     plain version, `spgemm(alg=1)` and `spgemm_fixed` beside them, the
-     device's busy time and idle share; ESC alg2/alg3 times and the
-     peak-memory increase of one alg1/alg2/alg3 call;
+     plain version, `compress_routed` beside `torch.take` in turns, per
+     call, per call of 200 back to back and by the profiler's device time,
+     with its bound (c counted in the 32-byte sectors it touches),
+     `spgemm(alg=1)` and `spgemm_fixed` beside them, the device's busy time
+     and idle share; ESC alg2/alg3 times and the peak-memory increase of
+     one alg1/alg2/alg3 call;
  10. the blocked engines, `spgemm(alg=2)` and `spgemm(alg=3,
      chunk_fraction=0.2 and 0.05)` with the default `impl`, at the three
      cells of phase 2 and the edge pairs of phase 7: `densify_onehot_pattern`
@@ -837,6 +844,7 @@ def phase6(spmv_cells, spmm_cells, smi):
         ta = _torch_csr(a)
         call_b = lambda: kb.spmv_binned(x, binned)  # noqa: E731
         call_o = lambda: ko.spmv_onehot(*args, x, m, n, onehot)  # noqa: E731
+        call_r = lambda: kr.spmv_routed(x, routed)  # noqa: E731
         call_mv = lambda: torch.mv(ta, x)  # noqa: E731
         row = {
             "cell": name, "nnz": a.nnz, "m": m, "n": n,
@@ -859,18 +867,21 @@ def phase6(spmv_cells, spmm_cells, smi):
             "torch_csr_mv_ms": median_ms(call_mv),
             "spmv_binned_ms": median_ms(call_b),
             "spmv_onehot_ms": median_ms(call_o),
+            "spmv_routed_ms": median_ms(call_r),
             "spmv_binned_ms_2": median_ms(call_b),
             "spmv_onehot_ms_2": median_ms(call_o),
+            "spmv_routed_ms_2": median_ms(call_r),
             "torch_csr_mv_ms_2": median_ms(call_mv),
             "spmv_binned_loop_ms": loop_ms(call_b),
             "spmv_onehot_loop_ms": loop_ms(call_o),
+            "spmv_routed_loop_ms": loop_ms(call_r),
             "torch_csr_mv_loop_ms": loop_ms(call_mv),
             "spmv_binned_busy_ms": kernel_busy_ms(call_b),
             "spmv_onehot_busy_ms": kernel_busy_ms(call_o),
+            "spmv_routed_busy_ms": kernel_busy_ms(call_r),
             "torch_csr_mv_busy_ms": kernel_busy_ms(call_mv),
             "spmv_binned_plain_ms": median_ms(
                 lambda: kb.spmv_binned_plain(x, binned)),
-            "spmv_routed_ms": median_ms(lambda: kr.spmv_routed(x, routed)),
             "spmv_routed_plain_ms": median_ms(
                 lambda: kr.spmv_routed_plain(x, routed)),
             "spmv_onehot_plain_ms": median_ms(
@@ -894,6 +905,7 @@ def phase6(spmv_cells, spmm_cells, smi):
                 lambda p=p: ko.spmv_onehot(*args, x, m, n, p))
         for tag in ("call", "tag_routed", "tag_binned", "tag_onehot"):
             row[f"spmv_{tag}_gnnz_s"] = a.nnz / row[f"spmv_{tag}_ms"] / 1e6
+        row["spmv_routed_device_top_ms"] = device_profile(call_r)[1]
         busy, top = device_profile(
             lambda: pt.spmv(a, x, plan=("routed", routed)))
         row["spmv_tag_routed_device_busy_ms"] = busy
@@ -1033,15 +1045,25 @@ def phase7(dev):
         c = plan._product(a.data, b.data)
         prev = torch.from_numpy(rng.standard_normal(plan.nnz).astype(
             np.float32)).to(dev)
-        for kw in ({}, {"alpha": -1.7}, {"alpha": 0.5, "c_prev": prev,
-                                         "beta": -2.0}):
-            got = route.extract_routed(c, plan._pc, **kw)
-            want = route.extract_routed_plain(c, plan._pc, **kw)
-            if not same_bits(got, want):
-                raise AssertionError(f"compress_routed != plain at {name} "
-                                     f"{sorted(kw)}")
-            err["compress_routed"] = max(err["compress_routed"],
-                                         max_abs(got, want))
+        # the plan's int32 positions, and int64 ones (a plan past 2^31
+        # cells); the accumulate also written in place into prev
+        for pc in (plan._pc, plan._pc._replace(pos=plan._pc.pos.long())):
+            for kw in ({}, {"alpha": -1.7}, {"alpha": 0.5, "c_prev": prev,
+                                             "beta": -2.0}):
+                got = route.extract_routed(c, pc, **kw)
+                want = route.extract_routed_plain(c, pc, **kw)
+                if not same_bits(got, want):
+                    raise AssertionError(
+                        f"compress_routed != plain at {name} {pc.pos.dtype} "
+                        f"{sorted(kw)}")
+                err["compress_routed"] = max(err["compress_routed"],
+                                             max_abs(got, want))
+            buf = prev.clone()  # the last form again, in place
+            got = route.extract_routed(c, pc, 0.5, c_prev=buf, beta=-2.0,
+                                       out=buf)
+            if not (got is buf and same_bits(got, want)):
+                raise AssertionError(f"compress_routed in place != plain at "
+                                     f"{name} {pc.pos.dtype}")
         del c
     torch.cuda.synchronize()
     # the main path: plan calls, fresh values, accumulate, batch
@@ -1161,6 +1183,15 @@ def peak_mb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
+def compress_bound(row):
+    """The least time of the serving gather out[i] = alpha * c[pos[i]]:
+    the positions (4 or 8 bytes an entry) and the output once, and c
+    counted in the 32-byte sectors its entries touch (8 entries a sector
+    where the output structure is dense, one where it is sparse)."""
+    return bound((row["pos_bytes"] + 4) * row["nnz"] + 32 * row["c_sectors"],
+                 row["nnz"])
+
+
 def phase9(serving, esc_cells, smi):
     """CUDA-event medians of serving and ESC; returns the rows."""
     from spmm_tpu_torch.ops.kernels import route
@@ -1172,8 +1203,15 @@ def phase9(serving, esc_cells, smi):
         c = plan._product(a.data, b.data)
         av = torch.stack([a.data] * BATCH_K)
         bv = torch.stack([b.data] * BATCH_K)
+        pc = plan._pc
+        pos64 = pc.pos.long()  # torch.take's index type, made once
+        call_c = lambda: route.extract_routed(c, pc)  # noqa: E731
+        call_take = lambda: torch.take(c, pos64)  # noqa: E731
         row = {
             "cell": f"serving {name}", "nnz": cap,
+            "pos_bytes": pc.pos.element_size(),
+            # the 32-byte sectors of c the gather touches
+            "c_sectors": int(torch.unique(pos64 // 8).numel()),
             "plan_build_host_ms": host_ms(lambda: pt.spgemm_plan(a, b)),
             "plan_call_ms": median_ms(lambda: plan(a.data, b.data)),
             "values_ms": median_ms(lambda: plan.values(a.data, b.data)),
@@ -1184,20 +1222,26 @@ def phase9(serving, esc_cells, smi):
             "expand_routed_plain_ms": median_ms(
                 lambda: route.densify_routed_plain(a.data, plan._pa,
                                                    emit_pattern=False)),
-            "compress_routed_ms": median_ms(
-                lambda: route.extract_routed(c, plan._pc)),
+            # in turns: library, kernel, kernel, library
+            "compress_library_ms": median_ms(call_take),
+            "compress_routed_ms": median_ms(call_c),
+            "compress_routed_ms_2": median_ms(call_c),
+            "compress_library_ms_2": median_ms(call_take),
+            "compress_routed_loop_ms": loop_ms(call_c),
+            "compress_library_loop_ms": loop_ms(call_take),
+            "compress_routed_busy_ms": kernel_busy_ms(call_c),
+            "compress_library_busy_ms": kernel_busy_ms(call_take),
             "compress_routed_plain_ms": median_ms(
-                lambda: route.extract_routed_plain(c, plan._pc)),
+                lambda: route.extract_routed_plain(c, pc)),
             "spgemm_alg1_ms": median_ms(lambda: pt.spgemm(a, b, alg=1)),
             "spgemm_fixed_ms": median_ms(
                 lambda: pt.spgemm_fixed(a, b, cap=cap)),
             "a_nnz": a.nnz, "a_shape": list(a.shape),
         }
+        row["compress_bound_ms"] = compress_bound(row)[0]
         ta_csr = torch_csr(a.indptr, a.indices, a.data, a.shape)
         row["expand_library_ms"] = median_ms(ta_csr.to_dense)
-        row["compress_library_ms"] = median_ms(
-            lambda: torch.take(c, plan._pc.pos))
-        del ta_csr
+        del ta_csr, pos64
         row["plan_call_host_syncs"] = host_syncs(lambda: plan(a.data, b.data))
         busy, top = device_profile(lambda: plan(a.data, b.data))
         row["plan_call_device_busy_ms"] = busy
@@ -1874,7 +1918,7 @@ def main():
         kernel("compress_routed", "route.cu", "route.py:318",
                launches7["compress_routed"], err7["compress_routed"],
                t_sv["compress_routed_ms"], t_sv["compress_routed_plain_ms"],
-               bound(16 * t_sv["nnz"]), t_sv["compress_library_ms"]),
+               compress_bound(t_sv), t_sv["compress_library_ms"]),
         # blocks, B and the (mb R, N) output once, the indices; 2 flops per
         # stored block element and column of B
         kernel("bsr_spmm", "bsr_spmm.cu", "bsr_spmm.py:62",

@@ -12,8 +12,8 @@
 // 128-entry block through two static lane-gather tables and two
 // transposes.  Hopper addresses memory per thread, so the plan keeps only
 // the idea: every entry's flat dense position row*cols + col, computed once
-// at plan time (int64, so m*n past 2^31 is fine) and kept on the card.  Per
-// call one thread per entry moves one value:
+// at plan time and kept on the card (expand: int64; compress: int32 where
+// m*n < 2^31, else int64).  Per call:
 //
 //   expand_routed:   val[pos[i]] = vals[i]     (and pat[pos[i]] = bf16 1.0)
 //   compress_routed: out[i] = alpha * c[pos[i]], or with `prev`
@@ -26,22 +26,33 @@
 // contracts a*b + c into one FMA by default (--fmad=true), which would round
 // once where the JAX package (serving.py `_serve_acc`) and the plain PyTorch
 // version round twice.  `prev` may alias `out` (the in-place accumulate):
-// each thread reads and writes only its own slot.
+// each thread reads and writes only its own slots.
 //
 // Bound: bytes.  expand_routed is bound by the zero-fill the wrapper launches
 // (4 bytes per dense cell, 6 with the pattern), not by its scatter of 4 + 8
-// bytes read and 4 written per entry; compress_routed reads 8 bytes of
-// position and 4 of value per entry, the value a random 4-byte read from a
-// dense row (a 32-byte sector per read where a row's entries are sparse).
-// The design streams the position and value arrays in coalesced order, one
-// entry per thread; a later version writes whole dense rows from the
-// kernel (no memset) and fuses compress into the GEMM's epilogue.
+// bytes read and 4 written per entry; one thread per entry.
+//
+// compress_routed reads 4 bytes of position (8 past 2^31 cells), writes 4
+// of output, and gathers c: 4 bytes an entry where the output structure is
+// dense (1024^2/0.1: 8 entries a 32-byte sector), a whole 32-byte sector an
+// entry where it is sparse (8192^2/1e-3: ~67 entries in a row of 8192).  The
+// design: each thread takes kVec = 4 entries a warp-width apart and issues
+// their 4 gathers of c before any arithmetic; the grid is the blocks the
+// card holds at once, each looping over tiles of 1024 entries, so no block
+// is launched for a handful of entries.  Four consecutive entries a thread
+// with 16-byte loads of positions and a float4 store were measured too
+// (PERF.md): the same device time at 1024^2/0.1, 6-8 % more at
+// 8192^2/1e-3, and a second path for outputs off 16-byte alignment.
 
 #include <cuda_runtime.h>
+
+#include "grid.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 4;                   // entries a thread, per tile
+constexpr int kTile = kThreads * kVec;    // entries a block, per tile
 constexpr unsigned short kBf16One = 0x3F80;  // bf16 bit pattern of 1.0
 
 __global__ void expand_routed(const float* __restrict__ vals,
@@ -59,16 +70,40 @@ __global__ void expand_routed(const float* __restrict__ vals,
   }
 }
 
-__global__ void compress_routed(const float* __restrict__ c,
-                                const long long* __restrict__ pos,
-                                const float* prev, float* out, long long cap,
-                                float alpha, float beta) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += stride) {
-    const float v = __fmul_rn(alpha, c[pos[i]]);
-    out[i] = prev == nullptr ? v : __fadd_rn(__fmul_rn(beta, prev[i]), v);
+// Thread t of a block takes entries t, t + 256, t + 512 and t + 768 of
+// each tile of 1024: its 4 position loads, then its 4 gathers of c, all in
+// flight before the arithmetic.  A warp's load, gather and store
+// instructions each cover 32 consecutive entries, so the positions and the
+// output move in 128-byte lines and the gathers of one instruction fall in
+// one or two rows of c.
+template <typename Index>
+__global__ void __launch_bounds__(kThreads)
+    compress_routed(const float* __restrict__ c,
+                    const Index* __restrict__ pos, const float* prev,
+                    float* out, long long cap, float alpha, float beta) {
+  const long long ntiles = (cap + kTile - 1) / kTile;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long e0 = t * kTile + threadIdx.x;
+    long long p[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const long long e = e0 + j * kThreads;
+      p[j] = e < cap ? static_cast<long long>(__ldcs(pos + e)) : 0;
+    }
+    float v[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      v[j] = e0 + j * kThreads < cap ? __ldg(c + p[j]) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const long long e = e0 + j * kThreads;
+      if (e < cap) {
+        float r = __fmul_rn(alpha, v[j]);
+        if (prev != nullptr) r = __fadd_rn(__fmul_rn(beta, prev[e]), r);
+        out[e] = r;
+      }
+    }
   }
 }
 
@@ -76,6 +111,22 @@ int blocks_for(long long n) {
   // a grid-stride loop covers what a capped grid does not
   const long long b = (n + kThreads - 1) / kThreads;
   return static_cast<int>(b < (1LL << 20) ? b : (1LL << 20));
+}
+
+template <typename Index>
+int launch_compress(const float* c, const Index* pos, const float* prev,
+                    float* out, long long cap, float alpha, float beta,
+                    cudaStream_t s) {
+  static int resident[spmm::kMaxDevices];
+  cudaError_t err = cudaSuccess;
+  const int most = spmm::resident_blocks(compress_routed<Index>, kThreads,
+                                         resident, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long ntiles = (cap + kTile - 1) / kTile;
+  const int grid = static_cast<int>(ntiles < most ? ntiles : most);
+  compress_routed<Index><<<grid, kThreads, 0, s>>>(c, pos, prev, out, cap,
+                                                   alpha, beta);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -92,12 +143,16 @@ extern "C" int spmm_expand_routed(const float* vals, const long long* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int spmm_compress_routed(const float* c, const long long* pos,
-                                    const float* prev, float* out,
+// `pos` holds int64 positions when `wide` is non-zero, else int32 ones.
+extern "C" int spmm_compress_routed(const float* c, const void* pos,
+                                    int wide, const float* prev, float* out,
                                     long long cap, float alpha, float beta,
                                     void* stream) {
-  compress_routed<<<blocks_for(cap), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(c, pos, prev, out,
-                                                         cap, alpha, beta);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    return launch_compress(c, static_cast<const long long*>(pos), prev, out,
+                           cap, alpha, beta, s);
+  }
+  return launch_compress(c, static_cast<const int*>(pos), prev, out, cap,
+                         alpha, beta, s);
 }

@@ -62,10 +62,13 @@ __device__ __forceinline__ float block_tree_sum(float v, float* smem) {
 
 // Sum of the pieces piece(0), ..., piece(n - 1) by one warp, in piece
 // order: lane l adds the run [l*g, min((l+1)*g, n)) in order (g = ceil(n /
-// 32)), then the runs are added in lane order.  Every lane of the warp must
-// call it; every lane returns the sum.
+// 32)), then the runs are added in lane order.  A lane reads its run 8
+// pieces at a time, all 8 loads in flight before their adds (a row of 2048
+// pieces is 64 a lane: 8 waits on L2, not 64).  Every lane of the warp
+// must call it; every lane returns the sum.
 template <typename Piece>
 __device__ __forceinline__ float warp_ordered_sum(Piece piece, int n) {
+  constexpr int kBatch = 8;
   const int lane = threadIdx.x & 31;
   const int g = (n + 31) / 32;
   const int b = lane * g;
@@ -73,7 +76,15 @@ __device__ __forceinline__ float warp_ordered_sum(Piece piece, int n) {
   float run = 0.0f;
   if (b < e) {
     run = piece(b);
-    for (int i = b + 1; i < e; ++i) run += piece(i);
+    for (int i = b + 1; i < e; i += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) v[q] = i + q < e ? piece(i + q) : 0.0f;
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (i + q < e) run += v[q];
+      }
+    }
   }
   float sum = __shfl_sync(0xffffffffu, run, 0);
   for (int l = 1; l < 32; ++l) {

@@ -42,6 +42,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
 #include "row_sum.cuh"
 
 namespace {
@@ -49,7 +50,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kClasses = 4;   // row-length classes (NCLASSES)
 constexpr int kPiece = 4096;  // entries of a hub row per block (PIECE)
-constexpr int kMaxDevices = 64;
 
 // Rows rows[i] for i in [g*R, g*R + R) of a class of `count` rows, W lanes
 // each (R = kThreads / W); a row of length 0 is written as 0.
@@ -311,22 +311,12 @@ extern "C" int spmm_spmv_binned(const int* indptr, const int* indices,
                                 const int* piece_end, const int* piece_row,
                                 int* counters, float* partial, float* y,
                                 int m, int max_units, void* stream) {
-  static int resident[kMaxDevices];  // blocks the card holds, per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int resident[spmm::kMaxDevices];
+  cudaError_t err = cudaSuccess;
+  const int most =
+      spmm::resident_blocks(binned_spmv, kThreads, resident, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
-    int sms = 0;
-    int per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, binned_spmv,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int grid = max_units < resident[dev] ? max_units : resident[dev];
+  const int grid = max_units < most ? max_units : most;
   binned_spmv<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       indptr, indices, data, x, rows, class_off, piece_end, piece_row, m,
       counters, partial, y);

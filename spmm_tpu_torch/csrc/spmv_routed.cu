@@ -1,4 +1,5 @@
-// y = A @ x over the routed plan: the fixed-structure serving SpMV.
+// y = A @ x over the routed plan: the fixed-structure serving SpMV, one
+// launch, no memset.
 //
 // Replaces the Pallas kernels of spmm_tpu/ops/kernels/spmv_routed.py
 // (`_spmv_routed_call`: `_fused_kernel`, `_fused_kernel_seg`,
@@ -11,21 +12,40 @@
 //
 //   * rows of length <= cut, sorted by length (longest first) within
 //     windows of sigma rows, 32 rows to a slice; a slice is as wide as its
-//     longest row and is stored column-major, so lane r of the slice's warp
-//     reads row r's j-th entry at slice_ptr[s] + 32*j + r and a warp's loads
-//     coalesce.  Dead slots carry val = 0.0, col = 0, as the TPU plan's
-//     val_tbl does; each lane adds its row's slots in entry order.
+//     longest row and is stored column-major, so lane r reads row r's j-th
+//     slot at slice_ptr[s] + 32*j + r and a warp's loads coalesce.  Dead
+//     slots carry val = 0.0, col = 0, as the TPU plan's val_tbl does.
 //   * rows longer than cut stay out of the slices: they are cut into chunks
-//     of at most `ch` entries, a warp sums each chunk (strided lanes, fixed
-//     shuffle tree) into `partial`, and one thread per long row adds its
-//     chunks' partials in chunk order.  No thread walks a long row alone.
+//     of at most `ch` entries.
 //
-// Every row is written once (slice rows, empty ones included, by the slice
-// kernel; long rows by the combine), so y needs no zero-fill; no atomics,
-// bitwise on rerun.
+// Bound on this card: bytes (8 bytes a slot of (column, value) at the
+// plan's slack, the x gather, y once).  What holds a simple kernel back is
+// latency, not bandwidth: one warp walking a slice of ~100 columns, one
+// dependent x gather a slot, puts 512 warps on the card at 16384^2/5e-3.
+// The design:
 //
-// Bound: bytes.  8 bytes per slot (value, column) at the slack the plan
-// reports as slots / nnz, plus the x gather.
+//   * One grid, one launch.  Slice blocks come first, then chunk blocks.
+//   * A slice is split across 1, 2, 4 or 8 warps (its class, from its width
+//     in the plan: at most COLS = 16 columns a warp where 8 warps suffice)
+//     by contiguous ranges of its columns; lane r of every warp still reads
+//     row r's slots, so loads stay coalesced.  The plan orders slices by
+//     class, widest class first, so a block of 8 warps holds 8 / P slices
+//     of one class P.  Each lane issues K slots' (column, value) loads and
+//     their x gathers before its FMAs, adding its slots in column order;
+//     the warps' parts of a row are then added in warp order through shared
+//     memory.  16384^2/5e-3: 512 blocks, 4096 warps.
+//   * A chunk of a long row is a warp: lanes stride its entries (K in
+//     flight), a fixed shuffle tree sums them.  The row is closed in the
+//     same launch by `spmm::join_piece`: each chunk stores its partial and
+//     bumps the row's integer counter (zeroed when the plan is built, reset
+//     by the closing warp); the warp that sees the last count adds the
+//     partials in chunk order (`warp_ordered_sum`, 32 lanes, not one thread).
+//
+// Every row is written once (slice rows, empty ones included, by part 0 of
+// their slice; long rows by their closing warp), so y needs no zero-fill; no
+// float atomics, bitwise on rerun.  A plan's counters and partials serve
+// one launch at a time: a plan is not shared by launches on two streams at
+// once.
 
 #include <cuda_runtime.h>
 
@@ -35,87 +55,164 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kK = 8;  // slots (or entries) a lane keeps in flight
 
-__global__ void sell_slices(const long long* __restrict__ slice_ptr,
-                            const int* __restrict__ slice_rows,
-                            const int* __restrict__ sell_col,
-                            const float* __restrict__ sell_val, int nslices,
-                            const float* __restrict__ x,
-                            float* __restrict__ y) {
-  const long long slice =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (slice >= nslices) return;
-  const long long end = slice_ptr[slice + 1];
+// Lane `lane`'s part of a slice row: the slots of columns [j0, j1) at
+// base + 32*j, K at a time, loads before FMAs, added in column order.
+__device__ __forceinline__ float slice_part(const int* __restrict__ col,
+                                            const float* __restrict__ val,
+                                            const float* __restrict__ x,
+                                            long long base, int j0, int j1) {
   float acc = 0.0f;
-  for (long long p = slice_ptr[slice] + lane; p < end; p += 32) {
-    acc = fmaf(sell_val[p], __ldg(x + sell_col[p]), acc);
+  for (int j = j0; j < j1; j += kK) {
+    int c[kK];
+    float v[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+      const bool in = j + q < j1;
+      const long long p = base + 32LL * (j + q);
+      c[q] = in ? __ldg(col + p) : 0;
+      v[q] = in ? __ldg(val + p) : 0.0f;
+    }
+    float g[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) g[q] = __ldg(x + c[q]);
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+      if (j + q < j1) acc = fmaf(v[q], g[q], acc);
+    }
   }
-  const int row = slice_rows[slice * 32 + lane];
-  if (row >= 0) y[row] = acc;
+  return acc;
 }
 
-__global__ void chunk_partials(const int* __restrict__ indices,
-                               const float* __restrict__ data,
-                               const int* __restrict__ chunk_start,
-                               const int* __restrict__ chunk_end,
-                               int nchunks, const float* __restrict__ x,
-                               float* __restrict__ partial) {
-  const long long c =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+// Sum of data[e] * x[indices[e]] over the chunk [s, e1) by one warp: lane l
+// adds entries s + l, s + l + 32, ... in order (K in flight), then a fixed
+// shuffle tree; lane 0 returns the sum.
+__device__ __forceinline__ float chunk_dot(const int* __restrict__ indices,
+                                           const float* __restrict__ data,
+                                           const float* __restrict__ x,
+                                           long long s, long long e1,
+                                           int lane) {
+  float acc = 0.0f;
+  for (long long b = s + lane; b < e1; b += 32LL * kK) {
+    int c[kK];
+    float v[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+      const long long e = b + 32LL * q;
+      const bool in = e < e1;
+      c[q] = in ? __ldcs(indices + e) : 0;
+      v[q] = in ? __ldcs(data + e) : 0.0f;
+    }
+    float g[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) g[q] = __ldg(x + c[q]);
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+      if (b + 32LL * q < e1) acc = fmaf(v[q], g[q], acc);
+    }
+  }
+  return spmm::group_tree_sum<32>(acc);
+}
+
+// `cls[i]`: the number of slices of class i (8 >> i warps each), in the
+// plan's slice order.
+struct Classes {
+  int n[4];
+};
+
+__global__ void __launch_bounds__(kThreads)
+    routed_spmv(const long long* __restrict__ slice_ptr,
+                const int* __restrict__ slice_rows,
+                const int* __restrict__ sell_col,
+                const float* __restrict__ sell_val, Classes cls,
+                const int* __restrict__ indices,
+                const float* __restrict__ data,
+                const int* __restrict__ chunk_start,
+                const int* __restrict__ chunk_end,
+                const int* __restrict__ chunk_row, int nchunks,
+                const int* __restrict__ long_rows,
+                const int* __restrict__ long_chunk_ptr,
+                const float* __restrict__ x, int* __restrict__ counters,
+                float* __restrict__ partial, float* __restrict__ y) {
+  __shared__ float s_part[kWarps][32];
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int b = blockIdx.x;
+  int first = 0;  // the first slice of the class
+  for (int i = 0; i < 4; ++i) {
+    const int per = 1 << i;  // slices a block of this class holds
+    const int nb = (cls.n[i] + per - 1) / per;
+    if (b < nb) {
+      const int parts = kWarps >> i;  // warps a slice
+      const int s = first + b * per + warp / parts;
+      const int part = warp % parts;
+      const bool live = s < first + cls.n[i];
+      float acc = 0.0f;
+      long long base = 0;
+      if (live) {
+        base = slice_ptr[s];
+        const int width = static_cast<int>((slice_ptr[s + 1] - base) >> 5);
+        const int q = (width + parts - 1) / parts;
+        const int j0 = min(part * q, width);
+        acc = slice_part(sell_col, sell_val, x, base + lane, j0,
+                         min(j0 + q, width));
+      }
+      if (parts > 1) {  // uniform over the block
+        s_part[warp][lane] = acc;
+        __syncthreads();
+        if (part == 0) {
+          for (int w = 1; w < parts; ++w) acc += s_part[warp + w][lane];
+        }
+      }
+      if (live && part == 0) {
+        const int row = slice_rows[static_cast<long long>(s) * 32 + lane];
+        if (row >= 0) y[row] = acc;
+      }
+      return;
+    }
+    b -= nb;
+    first += cls.n[i];
+  }
+  // a chunk block: a warp per chunk of a long row
+  const int c = b * kWarps + warp;
   if (c >= nchunks) return;  // whole warps leave together
-  float acc = spmm::strided_dot(indices, data, x, chunk_start[c],
-                                chunk_end[c], lane, 32);
-  acc = spmm::group_tree_sum<32>(acc);
-  if (lane == 0) partial[c] = acc;
-}
-
-__global__ void combine_long(const int* __restrict__ long_rows,
-                             const int* __restrict__ long_chunk_ptr,
-                             int nlong, const float* __restrict__ partial,
-                             float* __restrict__ y) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nlong) return;
-  float acc = 0.0f;
-  for (int c = long_chunk_ptr[i]; c < long_chunk_ptr[i + 1]; ++c) {
-    acc += partial[c];
-  }
-  y[long_rows[i]] = acc;
-}
-
-int blocks_for(long long items, int per_block) {
-  return static_cast<int>((items + per_block - 1) / per_block);
+  const float piece =
+      chunk_dot(indices, data, x, chunk_start[c], chunk_end[c], lane);
+  const int i = chunk_row[c];
+  const int c0 = long_chunk_ptr[i];
+  spmm::join_piece(
+      piece, partial + c, counters + i, long_chunk_ptr[i + 1] - c0,
+      [&](int k) { return __ldcg(partial + c0 + k); }, y + long_rows[i]);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the first cudaGetLastError() that is not
-// success.  Either part may be empty (nslices == 0 or nlong == 0); the
-// caller guarantees the plan is not empty as a whole.
+// One launch on `stream`; returns its cudaGetLastError().  `n8, n4, n2, n1`:
+// the plan's slices of each class, in that order; either part may be empty
+// (no slices, or nchunks == 0), not both.  `counters` (one a long row: zeros,
+// or as the last launch left them) and `partial` (one a chunk) come from the
+// plan.
 extern "C" int spmm_spmv_routed(const long long* slice_ptr,
                                 const int* slice_rows, const int* sell_col,
-                                const float* sell_val, int nslices,
-                                const int* indices, const float* data,
+                                const float* sell_val, int n8, int n4, int n2,
+                                int n1, const int* indices, const float* data,
                                 const int* chunk_start, const int* chunk_end,
-                                int nchunks, const int* long_rows,
-                                const int* long_chunk_ptr, int nlong,
-                                const float* x, float* partial, float* y,
+                                const int* chunk_row, int nchunks,
+                                const int* long_rows,
+                                const int* long_chunk_ptr, const float* x,
+                                int* counters, float* partial, float* y,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nslices > 0) {
-    sell_slices<<<blocks_for(nslices, kWarps), kThreads, 0, s>>>(
-        slice_ptr, slice_rows, sell_col, sell_val, nslices, x, y);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const Classes cls{{n8, n4, n2, n1}};
+  long long blocks = (nchunks + kWarps - 1) / kWarps;
+  for (int i = 0; i < 4; ++i) blocks += (cls.n[i] + (1 << i) - 1) >> i;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (nlong > 0) {
-    chunk_partials<<<blocks_for(nchunks, kWarps), kThreads, 0, s>>>(
-        indices, data, chunk_start, chunk_end, nchunks, x, partial);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    combine_long<<<blocks_for(nlong, kThreads), kThreads, 0, s>>>(
-        long_rows, long_chunk_ptr, nlong, partial, y);
-  }
+  routed_spmv<<<static_cast<unsigned>(blocks), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      slice_ptr, slice_rows, sell_col, sell_val, cls, indices, data,
+      chunk_start, chunk_end, chunk_row, nchunks, long_rows, long_chunk_ptr,
+      x, counters, partial, y);
   return static_cast<int>(cudaGetLastError());
 }

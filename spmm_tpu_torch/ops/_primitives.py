@@ -15,6 +15,7 @@ depend on the data are passed in by callers that have read them.
 
 from __future__ import annotations
 
+import struct
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -30,11 +31,20 @@ def _can_fuse_key(shape: Tuple[int, int]) -> bool:
     return int(shape[0]) * int(shape[1]) < 2**31
 
 
+_F32 = struct.Struct("f")
+
+
 def f32(x) -> float:
     """A Python scalar rounded to float32 once, so every version (kernel,
     plain, JAX's `jnp.asarray(alpha, float32)`) multiplies by the same
-    value."""
-    return float(np.float32(x))
+    value.  Packing to 4 bytes rounds as numpy's cast does, without its
+    per-call cost (the kernel wrappers call this on every call); what the
+    packer refuses (a finite value past float32's range, which numpy makes
+    inf) goes through numpy."""
+    try:
+        return _F32.unpack(_F32.pack(x))[0]
+    except (OverflowError, struct.error):
+        return float(np.float32(x))
 
 
 def lexsort_rowcol(row: torch.Tensor, col: torch.Tensor,

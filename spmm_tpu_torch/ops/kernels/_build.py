@@ -62,11 +62,11 @@ _SIGNATURES = {
     # counters, partial, y, m, max_units, stream
     "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _P),
-    # slice_ptr, slice_rows, sell_col, sell_val, nslices,
-    # indices, data, chunk_start, chunk_end, nchunks,
-    # long_rows, long_chunk_ptr, nlong, x, partial, y, stream
-    "spmm_spmv_routed": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                         _P, _P, _I, _P, _P, _P, _P),
+    # slice_ptr, slice_rows, sell_col, sell_val, n8, n4, n2, n1,
+    # indices, data, chunk_start, chunk_end, chunk_row, nchunks,
+    # long_rows, long_chunk_ptr, x, counters, partial, y, stream
+    "spmm_spmv_routed": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _I, _P, _P, _P, _P, _P, _P, _P),
     # indptr, indices, data, order, nrows, cut, chunk_start, chunk_end,
     # nchunks, long_rows, long_chunk_ptr, nlong, x, k, partial, y, stream
     "spmm_spmm_routed": (_P, _P, _P, _P, _I, _I, _P, _P, _I,
@@ -81,8 +81,8 @@ _SIGNATURES = {
     "spmm_segment_sum": (_P, _P, _P, _L, _I, _I, _P, _P),
     # vals, pos, val, pat, nnz, stream
     "spmm_expand_routed": (_P, _P, _P, _P, _L, _P),
-    # c, pos, prev, out, cap, alpha, beta, stream
-    "spmm_compress_routed": (_P, _P, _P, _P, _L, _F, _F, _P),
+    # c, pos, wide (int64 pos), prev, out, cap, alpha, beta, stream
+    "spmm_compress_routed": (_P, _P, _I, _P, _P, _L, _F, _F, _P),
     # indptr, indices, blocks, b, out, mb, R, C, m, K, N, stream
     "spmm_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
     # indptr, indices, data, out, m, k, stream
@@ -177,9 +177,8 @@ def launch(index: int, name: str, *args) -> int:
     """Call the library's `name` with `args` and the current stream of CUDA
     device `index`; returns its error code."""
     fn = getattr(library(), name)
-    current = torch.cuda.current_device()
     stream = torch._C._cuda_getCurrentRawStream(index)  # the raw handle
-    if index == current:
+    if index == torch._C._cuda_getDevice():  # the current device
         return fn(*args, stream)
     with torch.cuda.device(index):
         return fn(*args, stream)

@@ -8,12 +8,14 @@ the sparsity structure is fixed and only the values change per call.
 The TPU plans are pairs of static lane-gather tables, because a TPU cannot
 scatter or gather across lanes.  The port's plan keeps their idea without
 the tables: each entry's flat dense position row*cols + col, computed once
-from the structure (int64) and put on the plan's device once.  On a CUDA
-tensor the wrappers launch `csrc/route.cu` (`expand_routed`,
-`compress_routed`: one thread per entry, no atomics); on a CPU tensor they
-run the plain versions beside them.  Kernel and plain version give the same
-bits: values are moved, and the one product (alpha, and beta for the
-accumulate) is rounded as in the JAX package.
+from the structure and put on the plan's device once (int64 for expand;
+int32 for compress where the dense output has fewer than 2^31 cells, else
+int64: `pos_dtype`).  On a CUDA tensor the wrappers launch `csrc/route.cu`
+(`expand_routed`: one thread per entry; `compress_routed`: four entries a
+thread, a grid the card holds at once; no atomics); on a CPU
+tensor they run the plain versions beside them.  Kernel and plain version
+give the same bits: values are moved, and the one product (alpha, and beta
+for the accumulate) is rounded as in the JAX package.
 
 The TPU gates do not exist here: `m*k % 128`, the VMEM budgets of the
 resident source, and the ultra-sparse mask whose 128-entry block spans
@@ -45,7 +47,7 @@ class CompressPlan(NamedTuple):
     m: int
     n: int
     cap: int
-    pos: torch.Tensor      # (cap,) int64 flat positions, CSR order
+    pos: torch.Tensor      # (cap,) flat positions, CSR order: pos_dtype
     indptr: torch.Tensor   # (m+1,) int32
     indices: torch.Tensor  # (cap,) int32
 
@@ -71,6 +73,12 @@ def expand_route_plan(indptr, indices, m: int, k: int,
         _device_of(indices, device)))
 
 
+def pos_dtype(m: int, n: int) -> np.dtype:
+    """The type of a compress plan's flat positions into an (m, n) dense
+    array: int32 where every position fits (m*n < 2^31), else int64."""
+    return np.dtype(np.int32 if int(m) * int(n) < 2**31 else np.int64)
+
+
 def compress_plan_from_flat(flat: np.ndarray, m: int, n: int,
                             device) -> Optional[CompressPlan]:
     """The extraction plan of an output structure given as sorted flat
@@ -84,7 +92,7 @@ def compress_plan_from_flat(flat: np.ndarray, m: int, n: int,
     np.cumsum(lens, out=indptr[1:])
     return CompressPlan(
         int(m), int(n), cap,
-        torch.from_numpy(flat.astype(np.int64)).to(device),
+        torch.from_numpy(flat.astype(pos_dtype(m, n))).to(device),
         torch.from_numpy(indptr).to(device),
         torch.from_numpy((flat % n).astype(np.int32)).to(device))
 
@@ -163,7 +171,16 @@ def densify_routed(vals: torch.Tensor, plan: ExpandPlan,
     return (dense, pat) if emit_pattern else dense
 
 
+def _vector_ok(t, cap: int, dev: int) -> bool:
+    return (t.dtype == torch.float32 and t.shape == (cap,)
+            and t.get_device() == dev and t.is_contiguous())
+
+
 def _check_compress(c, plan: CompressPlan, c_prev, out) -> None:
+    """Raise, worded, on what `extract_routed` does not take."""
+    if plan.pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"extract_routed: the plan's positions must be "
+                         f"int32 or int64, got {plan.pos.dtype}")
     if (c.dtype != torch.float32 or c.shape != (plan.m, plan.n)
             or not c.is_contiguous()):
         raise ValueError(f"extract_routed: c must be a contiguous float32 "
@@ -200,20 +217,31 @@ def extract_routed(c: torch.Tensor, plan: CompressPlan, alpha=1.0,
     given, each product and the sum rounded to float32 on its own (as the
     JAX serving program computes them).  Written into `out` when given
     (`out` may be `c_prev`: the in-place accumulate)."""
-    _check_compress(c, plan, c_prev, out)
-    if c.device.type == "cpu":
+    # one expression on every call, cheapest first; the worded checks only
+    # where it fails
+    pos = plan.pos
+    dev = c.get_device()
+    wide = pos.dtype == torch.int64
+    if not ((wide or pos.dtype == torch.int32)
+            and c.dtype == torch.float32 and c.shape == (plan.m, plan.n)
+            and pos.get_device() == dev and c.is_contiguous()
+            and (c_prev is None or _vector_ok(c_prev, plan.cap, dev))
+            and (out is None or _vector_ok(out, plan.cap, dev))):
+        _check_compress(c, plan, c_prev, out)
+        raise ValueError("extract_routed: arguments do not fit the plan")
+    if not c.is_cuda:
+        if c.device.type != "cpu":
+            raise ValueError(f"extract_routed: unsupported device {c.device}")
         return extract_routed_plain(c, plan, alpha, c_prev, beta, out)
-    if c.device.type != "cuda":
-        raise ValueError(f"extract_routed: unsupported device {c.device}")
     if out is None:
-        out = torch.empty(plan.cap, dtype=torch.float32, device=c.device)
-    lib = _build.library()
-    with torch.cuda.device(c.device):
-        err = lib.spmm_compress_routed(
-            c.data_ptr(), plan.pos.data_ptr(),
-            c_prev.data_ptr() if c_prev is not None else None,
-            out.data_ptr(), plan.cap, prim.f32(alpha), prim.f32(beta),
-            torch.cuda.current_stream().cuda_stream)
+        out = c.new_empty(plan.cap)
+    if c_prev is None:
+        prev, beta = None, 0.0  # the kernel reads beta only with prev
+    else:
+        prev, beta = c_prev.data_ptr(), prim.f32(beta)
+    err = _build.launch(dev, "spmm_compress_routed", c.data_ptr(),
+                        pos.data_ptr(), wide, prev, out.data_ptr(), plan.cap,
+                        prim.f32(alpha), beta)
     _build.check(err, "compress_routed")
     _build.LAUNCHES["compress_routed"] += 1
     return out

@@ -15,17 +15,25 @@ The port's plan, built on the matrix's device (a few host syncs for sizes):
   * rows of length <= `cut` go to SELL-32-sigma slices: sorted longest
     first within windows of `SIGMA` rows, 32 to a slice, each slice as wide
     as its longest row and stored column-major (`sell_col`, `sell_val`);
-    dead slots carry val 0.0 and col 0, as the TPU plan's `val_tbl` does;
+    dead slots carry val 0.0 and col 0, as the TPU plan's `val_tbl` does.
+    The SpMV kernel splits a slice across 1, 2, 4 or 8 warps, at most
+    `COLS` columns a warp (its class); the slices are stored in class
+    order, most warps first, and `classes` counts each class;
   * rows longer than `cut` are cut into chunks of at most `ch` entries
-    (`chunk_start`, `chunk_end`), summed a warp each and combined per row in
-    chunk order, so no thread walks a long row alone.
+    (`chunk_start`, `chunk_end`, and `chunk_row`, the long row each
+    belongs to), summed a warp each and closed per row in chunk order, so
+    no thread walks a long row alone.
 
-`csrc/spmv_routed.cu` runs the SpMV over it; `csrc/spmm_routed.cu` runs the
-SpMM with the plan's row order and the CSR arrays (a warp per row and 32
-columns of X, and the same chunks for the long rows).  `slack` is slots /
-nnz, the statistic the JAX plan reports.  A plan made with `sell=False`
-carries only the long-row chunks: it serves `spmm_routed` (a per-call
-`spmm`), not `spmv_routed`.
+`csrc/spmv_routed.cu` runs the SpMV over it in one launch: the plan's
+`counters` (one a long row, zero when built, reset by the warp that closes
+the row) pick which chunk's warp adds the row's `partial`s, so a call
+allocates and zero-fills nothing but y.  A plan serves one launch at a
+time: it is not shared by launches on two streams at once.
+`csrc/spmm_routed.cu` runs the SpMM with the plan's row order and the CSR
+arrays (a warp per row and 32 columns of X, and the same chunks for the
+long rows).  `slack` is slots / nnz, the statistic the JAX plan reports.
+A plan made with `sell=False` carries only the long-row chunks: it serves
+`spmm_routed` (a per-call `spmm`), not `spmv_routed`.
 
 Not copied from the TPU plan: its limit `n <= C*16384/R` (the x table's
 reach), its rejection of pathological class skew, and its None for an
@@ -35,7 +43,7 @@ canonical f32 CSR.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,7 +54,9 @@ from spmm_tpu_torch.ops.kernels._checks import check_csr, check_dense
 CUT = 256        # rows longer than this leave the slices
 CH = 512         # entries per chunk of a long row
 SIGMA = 16384    # rows per sorting window
-SLICE = 32       # rows per slice: one warp, a lane per row
+SLICE = 32       # rows per slice: a lane per row
+COLS = 16        # slice columns a warp of the SpMV kernel takes, at most
+WARPS = 8        # warps a slice is split across, at most (the block)
 
 INDEX_DTYPE = prim.INDEX_DTYPE
 
@@ -63,12 +73,17 @@ class SpmvRoutedPlan(NamedTuple):
     long_chunk_ptr: torch.Tensor  # (nlong+1,) i32 — chunks of each long row
     chunk_start: torch.Tensor     # (nchunks,) i32 — entry range of a chunk
     chunk_end: torch.Tensor       # (nchunks,) i32
+    chunk_row: torch.Tensor       # (nchunks,) i32 — its long row's index
     slots: int                    # slice slots + long-row entries
     order: Optional[torch.Tensor] = None       # (ns,) i32 — slice rows
     slice_rows: Optional[torch.Tensor] = None  # (nslices*32,) i32, -1 pads
     slice_ptr: Optional[torch.Tensor] = None   # (nslices+1,) i64 — slots
     sell_col: Optional[torch.Tensor] = None    # (slice slots,) i32
     sell_val: Optional[torch.Tensor] = None    # (slice slots,) f32
+    # slices split across 8, 4, 2 and 1 warps, stored in that order
+    classes: Tuple[int, int, int, int] = (0, 0, 0, 0)
+    counters: Optional[torch.Tensor] = None    # (nlong,) i32 — zeros
+    partial: Optional[torch.Tensor] = None     # (nchunks,) f32 — scratch
 
     @property
     def nnz(self) -> int:
@@ -84,10 +99,21 @@ class SpmvRoutedPlan(NamedTuple):
         return self.slots / max(self.nnz, 1)
 
 
+def slice_warps(width: torch.Tensor) -> torch.Tensor:
+    """The warps the SpMV kernel splits a slice of `width` columns across:
+    the fewest of 1, 2, 4 and 8 that give each at most COLS columns, else
+    8."""
+    w = torch.ones_like(width)
+    for k in (1, 2, 4):
+        w = torch.where(width > k * COLS, 2 * k, w)
+    return w
+
+
 def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
                      ch: int):
-    """(long_rows, long_chunk_ptr, chunk_start, chunk_end) of the rows
-    longer than `cut`, each cut into chunks of at most `ch` entries."""
+    """(long_rows, long_chunk_ptr, chunk_start, chunk_end, chunk_row) of
+    the rows longer than `cut`, each cut into chunks of at most `ch`
+    entries."""
     dev = indptr.device
     long_rows = torch.nonzero(lens > cut).flatten()
     llens = lens[long_rows]
@@ -104,7 +130,8 @@ def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
     start = indptr[row].long() + q * ch
     end = torch.minimum(start + ch, indptr[row + 1].long())
     return (long_rows.to(INDEX_DTYPE), long_chunk_ptr,
-            start.to(INDEX_DTYPE), end.to(INDEX_DTYPE))
+            start.to(INDEX_DTYPE), end.to(INDEX_DTYPE),
+            owner.to(INDEX_DTYPE))
 
 
 def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
@@ -121,11 +148,11 @@ def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
                          f"got {cut}, {ch}")
     dev = data.device
     lens = (indptr[1:] - indptr[:-1]).long()
-    long_rows, long_chunk_ptr, chunk_start, chunk_end = _long_row_chunks(
-        indptr, lens, cut, ch)
+    long_rows, long_chunk_ptr, chunk_start, chunk_end, chunk_row = \
+        _long_row_chunks(indptr, lens, cut, ch)
     long_nnz = int(lens[long_rows.long()].sum())
     plan = SpmvRoutedPlan(m, n, cut, ch, indptr, indices, data, long_rows,
-                          long_chunk_ptr, chunk_start, chunk_end,
+                          long_chunk_ptr, chunk_start, chunk_end, chunk_row,
                           slots=long_nnz)
     if not sell:
         return plan
@@ -143,9 +170,19 @@ def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
     width = torch.cat([lens[order], torch.zeros(pad, dtype=lens.dtype,
                                                 device=dev)])
     width = width.view(nslices, SLICE).amax(1) if nslices else width
+    # the slices in class order, most warps first (stable): slice s of
+    # `order` is stored as slice inv[s]
+    warps = slice_warps(width)
+    perm = torch.sort(WARPS - warps, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(nslices, device=dev)
+    width = width[perm]
+    slice_rows = slice_rows.view(nslices, SLICE)[perm].reshape(-1)
     slice_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                            torch.cumsum(width * SLICE, 0)])
-    nslots = int(slice_ptr[-1])  # host sync: the layout's size
+    counts = torch.stack([(warps == w).sum() for w in (8, 4, 2, 1)])
+    # host sync: the layout's size and the class counts, in one read
+    nslots, *classes = torch.cat([slice_ptr[-1:], counts]).tolist()
 
     # slot of every entry of a slice row: slice_ptr[s] + 32*j + lane
     pos = torch.full((m,), -1, dtype=torch.int64, device=dev)
@@ -154,17 +191,20 @@ def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
     ent = torch.nonzero(lens[rows] <= cut).flatten()
     er = rows[ent]
     p = pos[er]
-    slot = (slice_ptr[p // SLICE] + (ent - indptr[er].long()) * SLICE
+    slot = (slice_ptr[inv[p // SLICE]] + (ent - indptr[er].long()) * SLICE
             + p % SLICE)
     sell_col = torch.zeros(nslots, dtype=INDEX_DTYPE, device=dev)
     sell_val = torch.zeros(nslots, dtype=torch.float32, device=dev)
     sell_col[slot] = indices[ent]
     sell_val[slot] = data[ent]
-    return plan._replace(slots=nslots + long_nnz,
-                         order=order.to(INDEX_DTYPE),
-                         slice_rows=slice_rows.to(INDEX_DTYPE),
-                         slice_ptr=slice_ptr, sell_col=sell_col,
-                         sell_val=sell_val)
+    return plan._replace(
+        slots=nslots + long_nnz, order=order.to(INDEX_DTYPE),
+        slice_rows=slice_rows.to(INDEX_DTYPE), slice_ptr=slice_ptr,
+        sell_col=sell_col, sell_val=sell_val, classes=tuple(classes),
+        counters=torch.zeros(long_rows.numel(), dtype=INDEX_DTYPE,
+                             device=dev),
+        partial=torch.empty(chunk_row.numel(), dtype=torch.float32,
+                            device=dev))
 
 
 def _long_partials(v: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
@@ -210,26 +250,29 @@ def spmv_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
 
 def spmv_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     """y = A @ x, (m,) f32, for the CSR captured in `plan`."""
-    _need_sell(plan)
-    check_dense(x, 1, plan.n, plan.data.device, "spmv_routed")
-    if x.device.type == "cpu":
+    # one expression on every call (the plan was checked when it was
+    # built); the worded checks only where it fails
+    val = plan.sell_val
+    if not (val is not None and isinstance(x, torch.Tensor)
+            and x.dtype == torch.float32 and x.shape == (plan.n,)
+            and x.get_device() == val.get_device() and x.is_contiguous()):
+        _need_sell(plan)
+        check_dense(x, 1, plan.n, plan.data.device, "spmv_routed")
+        raise ValueError("spmv_routed: x does not fit the plan")
+    if not x.is_cuda:
         return spmv_routed_plain(x, plan)
-    y = torch.empty(plan.m, dtype=torch.float32, device=x.device)
+    y = x.new_empty(plan.m)
     if plan.m == 0:
         return y  # a zero-size grid is a launch error
-    nchunks = plan.chunk_start.numel()
-    partial = torch.empty(max(nchunks, 1), dtype=torch.float32,
-                          device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.spmm_spmv_routed(
-            plan.slice_ptr.data_ptr(), plan.slice_rows.data_ptr(),
-            plan.sell_col.data_ptr(), plan.sell_val.data_ptr(),
-            plan.nslices, plan.indices.data_ptr(), plan.data.data_ptr(),
-            plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(), nchunks,
-            plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
-            plan.long_rows.numel(), x.data_ptr(), partial.data_ptr(),
-            y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        x.get_device(), "spmm_spmv_routed", plan.slice_ptr.data_ptr(),
+        plan.slice_rows.data_ptr(), plan.sell_col.data_ptr(), val.data_ptr(),
+        *plan.classes, plan.indices.data_ptr(), plan.data.data_ptr(),
+        plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(),
+        plan.chunk_row.data_ptr(), plan.chunk_row.numel(),
+        plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
+        x.data_ptr(), plan.counters.data_ptr(), plan.partial.data_ptr(),
+        y.data_ptr())
     _build.check(err, "spmv_routed")
     _build.LAUNCHES["spmv_routed"] += 1
     return y

@@ -324,10 +324,12 @@ def _device_events(fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["binned", "onehot"])
+@pytest.mark.parametrize("kernel", ["binned", "onehot", "routed"])
 def test_spmv_call_is_one_launch_and_no_memset(dev, kernel):
+    """On the hub_pieces edge, whose long rows take each kernel's join."""
     from spmm_tpu_torch.ops.kernels import spmv_binned as kb
     from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
 
     m, n, *host = _edge_arrays("hub_pieces")
     indptr, indices, data = _on(dev, *host)
@@ -335,10 +337,14 @@ def test_spmv_call_is_one_launch_and_no_memset(dev, kernel):
     if kernel == "binned":
         p = kb.spmv_binned_plan(indptr, indices, data, m, n)
         call = lambda: kb.spmv_binned(x, p)  # noqa: E731
-    else:
+    elif kernel == "onehot":
         p = ko.spmv_onehot_plan(indptr, m, n)
         call = lambda: ko.spmv_onehot(  # noqa: E731
             indptr, indices, data, x, m, n, p)
+    else:
+        p = kr.spmv_routed_plan(indptr, indices, data, m, n)
+        assert p.chunk_row.numel() > p.long_rows.numel() > 0
+        call = lambda: kr.spmv_routed(x, p)  # noqa: E731
     key = f"spmv_{kernel}"
     before = _build.LAUNCHES[key]
     call()
@@ -348,6 +354,62 @@ def test_spmv_call_is_one_launch_and_no_memset(dev, kernel):
         pytest.skip("the profiler's trace holds no device events here")
     kernels, memsets = seen
     assert memsets == 0 and len(kernels) == 1, seen
+
+
+@pytest.mark.gpu
+def test_compress_call_is_one_launch_and_no_memset(dev):
+    from spmm_tpu_torch.ops.kernels import route
+
+    c, mask, nnz = masked_dense(300, 500, 20000, seed=4)
+    plan = route.compress_route_plan(mask, 500, dev)
+    c = torch.from_numpy(c).to(dev)
+    prev = torch.ones(nnz, device=dev)
+    for call in (lambda: route.extract_routed(c, plan, 0.5),
+                 lambda: route.extract_routed(c, plan, 0.5, c_prev=prev,
+                                              beta=-1.0, out=prev)):
+        before = _build.LAUNCHES["compress_routed"]
+        call()
+        assert _build.LAUNCHES["compress_routed"] == before + 1
+        seen = _device_events(call)
+        if seen is None:
+            pytest.skip("the profiler's trace holds no device events here")
+        kernels, memsets = seen
+        assert memsets == 0 and len(kernels) == 1, seen
+
+
+def _full_row_arrays(n: int):
+    """3 x n: an empty row, a full row of n entries, an empty row."""
+    rng = np.random.default_rng(n)
+    indptr = np.array([0, 0, n, n], np.int32)
+    data = rng.standard_normal(n).astype(np.float32)
+    return 3, n, indptr, np.arange(n, dtype=np.int32), data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SPMV_EDGE) + ["row_of_563_chunks"])
+def test_spmv_routed_joins_many_chunks_on_card(dev, name):
+    """cut 8, chunks of 16 entries: rows cross many chunks (up to 182 at
+    the span_chunks edge, 563 in one row of 9000), each row closed by one
+    warp in chunk order; against the plain version and scipy, bitwise on
+    rerun, every counter reset by the warp that closed its row."""
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    m, n, *host = (_full_row_arrays(9000) if name == "row_of_563_chunks"
+                   else _edge_arrays(name))
+    indptr, indices, data = _on(dev, *host)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(n).astype(
+        np.float32)).to(dev)
+    p = kr.spmv_routed_plan(indptr, indices, data, m, n, cut=8, ch=16)
+    before = _build.LAUNCHES["spmv_routed"]
+    got = kr.spmv_routed(x, p)
+    again = kr.spmv_routed(x, p)
+    plain = kr.spmv_routed_plain(x, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmv_routed"] == before + 2
+    assert_bitwise(got, again)
+    assert not p.counters.any()
+    for y in (got, plain):
+        _assert_rowwise(y, (m, n, *host), x)
 
 
 @pytest.mark.gpu
@@ -512,13 +574,20 @@ def test_expand_routed_empty_launches_nothing(dev):
                                    (500, 7, 3400), (128, 128, 0)])
 @pytest.mark.parametrize("alpha,beta", [(1.0, None), (-1.7, None),
                                         (0.5, -2.0), (3.0, 1.0)])
-def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta):
+@pytest.mark.parametrize("wide", [False, True])
+def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta,
+                                                 wide):
     """Including the fused beta*prev + alpha*c[pos] (no FMA contraction)
-    written in place into prev."""
+    written in place into prev; with the plan's int32 positions and with
+    int64 ones (the type of a plan past 2^31 cells, swapped into the plan
+    here)."""
     from spmm_tpu_torch.ops.kernels import route
 
     c, mask, nnz = masked_dense(m, n, g, seed=g + 3)
     plan = route.compress_route_plan(mask, n, dev)
+    assert plan.pos.dtype == torch.int32
+    if wide:
+        plan = plan._replace(pos=plan.pos.long())
     c = torch.from_numpy(c).to(dev)
     kw = {}
     if beta is not None:
@@ -530,6 +599,13 @@ def test_compress_routed_kernel_bitwise_vs_plain(dev, m, n, g, alpha, beta):
     got = route.extract_routed(c, plan, alpha, **kw)
     assert _build.LAUNCHES["compress_routed"] == before + 1
     assert_bitwise(got, want)
+    # out and prev off 16-byte alignment, as a row of a batch can be
+    shifted = dict(kw)
+    if beta is not None:
+        shifted["c_prev"] = torch.cat([prev[:1], prev])[1:]
+    buf = torch.empty(nnz + 1, device=dev)
+    assert_bitwise(route.extract_routed(c, plan, alpha, out=buf[1:],
+                                        **shifted), want)
     if beta is not None:
         inplace = route.extract_routed(c, plan, alpha, out=kw["c_prev"], **kw)
         torch.cuda.synchronize()

@@ -197,6 +197,62 @@ def test_compress_alpha_and_accumulate():
         route.extract_routed(torch.from_numpy(c).T, plan)
 
 
+@pytest.mark.parametrize("m,n,want", [
+    (1, 2**31 - 1, torch.int32),    # m*n = 2^31 - 1: every position fits
+    (1, 2**31, torch.int64),
+    (2, 2**30, torch.int64),         # m*n = 2^31
+    (46340, 46341, torch.int32),     # 2^31 - 1 - 70 cells
+    (46341, 46341, torch.int64),     # past 2^31
+])
+def test_compress_position_type_from_shape_alone(m, n, want):
+    """The compress plan keeps int32 positions below 2^31 cells and int64
+    at and past it, decided from (m, n) alone: a one-entry structure in the
+    last cell, no such matrix made."""
+    assert route.pos_dtype(m, n) == np.dtype(str(want).split(".")[1])
+    flat = np.array([0, m * n - 1], np.int64)
+    plan = route.compress_plan_from_flat(flat, m, n, "cpu")
+    assert plan.pos.dtype == want
+    assert plan.pos.tolist() == flat.tolist()
+    assert plan.indptr.tolist()[-1] == 2 and plan.indptr.numel() == m + 1
+
+
+@pytest.mark.parametrize("m,n,density", [(256, 256, 0.3), (37, 45, 0.5),
+                                         (1, 1000, 0.1)])
+def test_compress_int32_and_int64_positions_agree(m, n, density):
+    """A plan's int32 positions and the same positions as int64 are the
+    same flat indices, and give `extract_routed_plain` the same bits, with
+    and without the accumulate."""
+    rng = np.random.default_rng(m + n)
+    mask = rng.random((m, n)) < density
+    c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    prev = torch.from_numpy(rng.standard_normal(int(mask.sum())).astype(
+        np.float32))
+    plan = route.compress_route_plan(mask, n)
+    wide = plan._replace(pos=plan.pos.long())
+    assert plan.pos.dtype == torch.int32
+    assert_bitwise(wide.pos, np.flatnonzero(mask.ravel()).astype(np.int64))
+    assert plan.pos.tolist() == wide.pos.tolist()
+    for kw in ({}, {"alpha": -1.7, "c_prev": prev, "beta": 0.3}):
+        got = route.extract_routed_plain(c, plan, **kw)
+        assert_bitwise(got, route.extract_routed_plain(c, wide, **kw))
+        assert_bitwise(got, route.extract_routed(c, wide, **kw))
+    with pytest.raises(ValueError, match="int32 or int64"):
+        route.extract_routed(c, plan._replace(pos=plan.pos.short()))
+
+
+def test_f32_rounds_as_numpy():
+    """The wrappers' float32 rounding of alpha and beta (a 4-byte pack)
+    gives numpy's value, also where the pack refuses the value."""
+    from spmm_tpu_torch.ops import _primitives as prim
+
+    with np.errstate(over="ignore"):  # numpy's inf past float32's range
+        for x in (1.0, -1.7, 0.1, 1 / 3, 3.4028235e38, 3.4028236e38, 1e39,
+                  -1e300, 1e-46, 2**200, np.float32(0.3), np.float64(2.2), 7,
+                  float("inf"), True):
+            assert prim.f32(x) == float(np.float32(x)), x
+    assert np.isnan(prim.f32(float("nan")))
+
+
 def test_roundtrip_spgemm_shapes():
     # expansion then compression: the serving pipeline's movement
     m = k = n = 256

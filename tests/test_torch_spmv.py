@@ -184,6 +184,40 @@ def test_routed_plan_layout(name):
     assert p.slack == p.slots / max(len(data), 1) and p.slack >= 1.0
 
 
+@pytest.mark.parametrize("name", ["300x256", "empty_rows", "powerlaw",
+                                  "1000x1000"])
+@pytest.mark.parametrize("cut,ch", [(8, 16), (256, 512)])
+def test_routed_plan_join_state_and_slice_classes(name, cut, ch):
+    """The state of the one-launch kernel: a counter per long row, all zero
+    when the plan is built; one partial slot per chunk; each chunk's long
+    row.  The slices stored in class order (8, 4, 2, 1 warps, at most COLS
+    columns a warp), `classes` counting them.  A sell=False plan carries
+    the chunks alone."""
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    indptr, indices, data, m, n = _arrays(name)
+    ti, tx, td = _t(indptr, indices, data)
+    p = spmv_routed_plan(ti, tx, td, m, n, cut=cut, ch=ch)
+    nlong, nchunks = p.long_rows.numel(), p.chunk_start.numel()
+    assert p.counters.dtype == torch.int32 and p.counters.numel() == nlong
+    assert not p.counters.any()
+    assert p.partial.dtype == torch.float32 and p.partial.numel() == nchunks
+    cptr = p.long_chunk_ptr.numpy()
+    assert_bitwise(p.chunk_row, np.repeat(np.arange(nlong), np.diff(cptr))
+                   .astype(np.int32))
+    width = np.diff(p.slice_ptr.numpy()) // 32
+    warps = kr.slice_warps(torch.from_numpy(width)).numpy()
+    assert sum(p.classes) == p.nslices
+    assert warps.tolist() == sorted(warps.tolist(), reverse=True)
+    assert list(p.classes) == [int((warps == w).sum()) for w in (8, 4, 2, 1)]
+    # the fewest warps that give each at most COLS columns, 8 at the most
+    assert ((width <= kr.COLS * warps) | (warps == 8)).all()
+    assert ((width > kr.COLS * warps // 2) | (warps == 1)).all()
+    q = spmv_routed_plan(ti, tx, td, m, n, cut=cut, ch=ch, sell=False)
+    assert q.counters is None and q.partial is None and q.slice_ptr is None
+    assert_bitwise(q.chunk_row, p.chunk_row)
+
+
 def _hub_arrays():
     """A CSR whose rows reach past CLASS_BOUNDS[-1]: rows of 1, 2 and 3
     pieces of PIECE entries between empty and short rows (n = 3 * PIECE)."""

@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Time `spmv_binned`, `spmv_onehot`, `spmv(a, x)` and `torch.mv` of one
-checkout of the PyTorch/CUDA port on one NVIDIA GPU, or of two checkouts in
-turns (A, B, B, A), each turn in a process of its own.
+"""Time the SpMV kernels and the serving gather of one checkout of the
+PyTorch/CUDA port on one NVIDIA GPU beside their PyTorch library calls, or
+of two checkouts in turns (A, B, B, A), each turn in a process of its own.
 
     python3 tools/spmv_turns.py                     # this checkout
     python3 tools/spmv_turns.py --repo DIR          # the checkout at DIR
     python3 tools/spmv_turns.py --against DIR       # DIR, this, this, DIR
 
-Cells: SpMV 16384^2/5e-3 (seed 2014) and the power-law 2^20 matrix
-(`power_law_rows(2^20, 2^20, 16, alpha=1.5, seed=0)`), x N(0,1) from seed
-2024, as in chip_smoke.py.  Per kernel: `call_ms`, the median CUDA-event
-time around one call (the host's wrapper included); `loop_ms`, events
-around 200 back-to-back calls over the count; `busy_ms`, the device time
-per call in a torch.profiler trace (None where the trace holds no device
-events).  Each turn prints one JSON line with the card's name and power
-limit.  Needs a CUDA device; imports neither jax nor spmm_tpu.
+SpMV cells: 1024^2/0.1 (seed 2008), 16384^2/5e-3 (seed 2014) and the
+power-law 2^20 matrix (`power_law_rows(2^20, 2^20, 16, alpha=1.5,
+seed=0)`), x N(0,1) from seed 2024 in that order, as in chip_smoke.py;
+timed: `spmv_binned`, `spmv_onehot`, `spmv_routed`, `spmv(a, x,
+plan=("routed", p))`, `spmv(a, x)` and `torch.mv` of torch's CSR tensor.
+Serving cells: `spgemm_plan` at SpGEMM 1024^2/0.1 (seeds 2008/2009) and
+8192^2/1e-3 (seeds 2012/2013); timed: `compress_routed` (`extract_routed`
+of the plan's dense product, and its accumulate form written in place) and
+`torch.take` with int64 positions made once, outside the timing.
+
+Per call: `call_ms`, the median CUDA-event time around one call (the host's
+wrapper included), taken in turns within the process (library, kernels,
+kernels, library: `call_ms` holds both turns); `loop_ms`, events around
+200 back-to-back calls over the count; `busy_ms`, the device time per call
+in a torch.profiler trace (None where the trace holds no device events);
+and, for `spmv_routed` and `compress_routed`, the trace's kernels by name
+(`top`).  `bound_ms` is the least time of the work at 3.35 TB/s: for SpMV
+8 bytes an entry, indptr, x and y once; for the gather the positions
+(4 or 8 bytes an entry), the output, and `c` counted in the 32-byte
+sectors its entries touch.  Each turn prints one JSON line with the card's
+name and power limit.  Needs a CUDA device; imports neither jax nor
+spmm_tpu.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import sys
 import warnings
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HBM_BYTES_S = 3.35e12
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -61,6 +76,8 @@ def loop_ms(torch, fn, calls=200):
 
 
 def busy_ms(torch, fn, calls=50):
+    """(device ms per call, [[kernel name, ms per call], ...] largest
+    first) of `fn` in a profiler trace; (None, []) without device events."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -69,9 +86,47 @@ def busy_ms(torch, fn, calls=50):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / calls / 1e3 if us else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / calls / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    if not by_name:
+        return None, []
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return sum(by_name.values()), [[k[:60], v] for k, v in top]
+
+
+def in_turns(torch, calls: dict, library: str, detail=()) -> dict:
+    """Each call's times; `call_ms` in turns (library, the others, the
+    others again, library), then the 200-call loop and the trace."""
+    others = [k for k in calls if k != library]
+    row = {k: {"call_ms": []} for k in calls}
+    for key in [library, *others, *others, library]:
+        row[key]["call_ms"].append(median_ms(torch, calls[key]))
+    for key, fn in calls.items():
+        row[key]["loop_ms"] = loop_ms(torch, fn)
+        busy, top = busy_ms(torch, fn)
+        row[key]["busy_ms"] = busy
+        if key in detail:
+            row[key]["top"] = top
+    return row
+
+
+def spmv_cells(torch, pt, power_law_rows, dev):
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    mats = [("spmv 1024^2/0.1",
+             pt.random(1024, 1024, 0.1, format="csr", seed=2008, device=dev)),
+            ("spmv 16384^2/5e-3",
+             pt.random(16384, 16384, 5e-3, format="csr", seed=2014,
+                       device=dev)),
+            ("spmv powerlaw 2^20",
+             power_law_rows(1 << 20, 1 << 20, 16, alpha=1.5, seed=0,
+                            device=dev))]
+    return [(name, a, torch.from_numpy(rng.standard_normal(
+        a.shape[1]).astype(np.float32)).to(dev)) for name, a in mats]
 
 
 def measure(repo: str) -> dict:
@@ -81,8 +136,10 @@ def measure(repo: str) -> dict:
 
     import spmm_tpu_torch as pt
     from spmm_tpu_torch.models import power_law_rows
+    from spmm_tpu_torch.ops.kernels import route
     from spmm_tpu_torch.ops.kernels import spmv_binned as kb
     from spmm_tpu_torch.ops.kernels import spmv_onehot as ko
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
 
     if not torch.cuda.is_available():
         raise SystemExit("spmv_turns: needs a CUDA device")
@@ -90,35 +147,54 @@ def measure(repo: str) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(2024)
-    cells = [("spmv 16384^2/5e-3",
-              pt.random(16384, 16384, 5e-3, format="csr", seed=2014,
-                        device=dev)),
-             ("spmv powerlaw 2^20",
-              power_law_rows(1 << 20, 1 << 20, 16, alpha=1.5, seed=0,
-                             device=dev))]
     out = {"repo": os.path.abspath(pt.__file__), "card": smi}
-    for name, a in cells:
+    for name, a, x in spmv_cells(torch, pt, power_law_rows, dev):
         m, n = a.shape
-        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
         args = (a.indptr, a.indices, a.data)
         binned = kb.spmv_binned_plan(*args, m, n)
         onehot = ko.spmv_onehot_plan(a.indptr, m, n)
+        routed = kr.spmv_routed_plan(*args, m, n)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             ta = torch.sparse_csr_tensor(a.indptr.long(), a.indices.long(),
                                          a.data, a.shape)
-        calls = {"spmv_binned": lambda: kb.spmv_binned(x, binned),
+        calls = {"torch_mv": lambda: torch.mv(ta, x),
+                 "spmv_binned": lambda: kb.spmv_binned(x, binned),
                  "spmv_onehot": lambda: ko.spmv_onehot(*args, x, m, n,
                                                        onehot),
-                 "spmv_call": lambda: pt.spmv(a, x),
-                 "torch_mv": lambda: torch.mv(ta, x)}
-        row = {"nnz": a.nnz}
-        for key, fn in calls.items():
-            row[key] = {"call_ms": median_ms(torch, fn),
-                        "loop_ms": loop_ms(torch, fn),
-                        "busy_ms": busy_ms(torch, fn)}
+                 "spmv_routed": lambda: kr.spmv_routed(x, routed),
+                 "spmv_tag_routed": lambda: pt.spmv(
+                     a, x, plan=("routed", routed)),
+                 "spmv_call": lambda: pt.spmv(a, x)}
+        row = {"nnz": a.nnz, "bound_ms": (8 * a.nnz + 4 * (m + 1) + 4 * n
+                                          + 4 * m) / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, "torch_mv", ("spmv_routed",)))
         out[name] = row
+        del ta, binned, onehot, routed
+    rng = np.random.default_rng(2025)
+    for name, nn, d, sa, sb in (("1024^2/0.1", 1024, 0.1, 2008, 2009),
+                                ("8192^2/1e-3", 8192, 1e-3, 2012, 2013)):
+        a = pt.random(nn, nn, d, format="csr", seed=sa, device=dev)
+        b = pt.random(nn, nn, d, format="csr", seed=sb, device=dev)
+        plan = pt.spgemm_plan(a, b)
+        pc = plan._pc
+        c = plan._product(a.data, b.data)
+        pos64 = pc.pos.long()
+        prev = torch.from_numpy(rng.standard_normal(pc.cap).astype(
+            np.float32)).to(dev)
+        sectors = int(torch.unique(pos64 // 8).numel())
+        nbytes = (pc.pos.element_size() + 4) * pc.cap + 32 * sectors
+        calls = {"torch_take": lambda: torch.take(c, pos64),
+                 "compress_routed": lambda: route.extract_routed(c, pc),
+                 "compress_routed_acc": lambda: route.extract_routed(
+                     c, pc, 0.5, c_prev=prev, beta=1.0, out=prev)}
+        row = {"cap": pc.cap, "pos_bytes": pc.pos.element_size(),
+               "c_sectors": sectors,
+               "bound_ms": nbytes / HBM_BYTES_S * 1e3,
+               "bound_12B_ms": 12 * pc.cap / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, "torch_take", ("compress_routed",)))
+        out[f"serving {name}"] = row
+        del plan, pc, c, pos64, prev
     return out
 
 
