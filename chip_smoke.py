@@ -78,9 +78,11 @@ for each:
      and alg3 engine and ESC, each with its peak-memory increase and host
      syncs per call; the count and numeric passes apart; device busy time
      and idle share; `densify_onehot_pattern` against its plain version and
-     torch's CSR `to_dense()`;
+     torch's CSR `to_dense()`, with its device time from a profiler trace,
+     also at the (k, P n_b) pattern of B in the cf 0.2 alg3 sizing pass;
  12. the containers slice: `bsr_spmm` against its plain version (within
-     1e-6 of each entry's absolute sum, bitwise on rerun) at four block
+     1e-6 of each entry's absolute sum, bitwise on rerun; each cell's worst
+     ratio to that gate, and the kernel's against scipy) at four block
      cells (128x128 blocks of `models.block_sparse`, X of 256 columns), a
      CSR 8192^2/1e-3 re-tiled by `tobsr()` at (8, 128) and three edges;
      `csr_densify_mxu` bitwise against its plain version and `toarray()`;
@@ -90,6 +92,8 @@ for each:
      COO/CSR/CSC/BSR/DIA bitwise against scipy's conversions;
  13. their CUDA-event timings: each kernel, its plain version and torch's
      library call (BSR @ dense, CSR `to_dense()`), spmm's two BSR routes,
+     `bsr_spmm`'s device time and its bound on its own route (3xTF32 on the
+     tensor cores) beside the FMA units' bound,
      `tobsr()`, `tocoo().tocsr()` and `tocsc()`, and the device's busy
      time and idle share for `spmm(via="bsr_pallas")`.
 
@@ -148,9 +152,11 @@ RTOL = 1e-6  # the repo's stated error target (BASELINE.json)
 RUNS = 25
 WARMUP = 3
 # the card's rates for the least time of a kernel's work (NVIDIA's H100 SXM
-# data sheet, dense): HBM bytes/s, float32 outside the tensor cores
+# data sheet, dense): HBM bytes/s, float32 outside the tensor cores, TF32 on
+# the tensor cores (989.4 TFLOP/s with sparsity, half of it dense)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 494.7e12
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -188,12 +194,12 @@ def median_ms(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int = 0):
+def bound(nbytes: int, flops: int = 0, rate: float = FP32_FLOPS):
     """(least ms, "bytes" or "operations"): the larger of the bytes the work
-    must move over the HBM rate and its float32 operations over the float32
-    rate."""
+    must move over the HBM rate and its operations over `rate` (float32
+    outside the tensor cores unless said)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,6 +233,28 @@ def device_profile(fn, calls: int = 10):
         return None, []
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return sum(by_name.values()), [[k[:60], v] for k, v in top]
+
+
+def kernel_ms(fn, name: str):
+    """Device time of one launch of the kernel whose name holds `name`: the
+    mean duration of its events in a torch.profiler trace of 50 calls of
+    `fn`, or of 200 where that trace came back without them (robust to a
+    trace that misses some events); None if neither holds any."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for calls in (50, 200):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def edge_csr(dev) -> pt.CSR:
@@ -1532,10 +1560,20 @@ def phase11(cells, engines, smi):
         args = (b.indptr, b.indices, k, n)
         row["pattern_nnz"] = b.nnz
         row["pattern_ms"] = median_ms(lambda: densify_onehot_pattern(*args))
+        row["pattern_device_ms"] = kernel_ms(
+            lambda: densify_onehot_pattern(*args), "densify_pattern_rows")
         row["pattern_plain_ms"] = median_ms(
             lambda: densify_onehot_pattern_plain(*args))
         row["pattern_library_ms"] = median_ms(tb.to_dense)
         del tb, ones
+        # the (k, P n_b) pattern of B in the cf 0.2 alg3 sizing pass
+        n_b, P = bl._alg3_grid(a.shape[0], n, 0.2)[:2]
+        sizing = (b.indptr, b.indices, k, P * n_b)
+        row["pattern_sizing_shape"] = [k, P * n_b]
+        row["pattern_sizing_ms"] = median_ms(
+            lambda: densify_onehot_pattern(*sizing))
+        row["pattern_sizing_device_ms"] = kernel_ms(
+            lambda: densify_onehot_pattern(*sizing), "densify_pattern_rows")
         rows.append(row)
         torch.cuda.empty_cache()
         print(f"phase 11 [{smi}]: " + json.dumps(row), flush=True)
@@ -1644,6 +1682,8 @@ def phase12(dev):
         if bool((diff > 1e-6 * scale).any()):
             raise AssertionError(f"bsr_spmm != plain at {name}: worst "
                                  f"{float(diff.max())}")
+        gate = float((diff / (1e-6 * scale).clamp_min(1e-30)).max()) \
+            if diff.numel() else 0.0
         # the form rtol 1e-5, atol 1e-6 max|C|, for the record only
         issue_form = float((diff / (1e-5 * want.abs().double() + 1e-6 * float(
             want.abs().max()) + 1e-30)).max()) if want.numel() else 0.0
@@ -1653,7 +1693,9 @@ def phase12(dev):
         refs[name] = (s @ xh, abs(s) @ np.abs(xh))
         notes.append(f"{name} nblocks={ab.nblocks} block={ab.blocksize} "
                      f"|k-plain|={max_abs(got, want):.3g} "
-                     f"(rtol1e-5/atol1e-6max form {issue_form:.3g})")
+                     f"({gate:.3g} of 1e-6 |A||X|, kernel vs scipy "
+                     f"{within_abs_sum(got, *refs[name]):.3g}; "
+                     f"rtol1e-5/atol1e-6max form {issue_form:.3g})")
         del got, again, want, scale, diff
     for name, a in mxu:
         args = (a.indptr, a.indices, a.data, *a.shape)
@@ -1762,7 +1804,17 @@ def phase13(cells, mxu, smi):
                "blocksize": [R, C], "nblocks": ab.nblocks,
                "block_rows": ab.indptr.numel() - 1}
         row["bsr_spmm_ms"] = median_ms(lambda: bsr_spmm(*args))
+        row["bsr_spmm_device_ms"] = kernel_ms(lambda: bsr_spmm(*args),
+                                              "bsr_spmm_tc")
         row["bsr_spmm_plain_ms"] = median_ms(lambda: bsr_spmm_plain(*args))
+        nbytes = 4 * (ab.nblocks * R * C + x.numel() + row["block_rows"]
+                      * R * x.shape[1] + row["block_rows"] + 1 + ab.nblocks)
+        flops = 2 * ab.nblocks * R * C * x.shape[1]
+        # the kernel's route: three TF32 products a multiply-add; beside it
+        # what the FMA units alone would allow
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * flops,
+                                                 TF32_FLOPS)
+        row["fp32_fma_bound_ms"] = bound(nbytes, flops)[0]
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)  # beta notices
             tb = torch.sparse_bsr_tensor(ab.indptr.long(), ab.indices.long(),
@@ -1852,8 +1904,6 @@ def main():
     # csr_densify_mxu at 8192^2/1e-3 (256 MB out)
     t_bsr = next(r for r in rows13 if r["cell"] == BSR_CELLS[-1][0])
     t_mxu = next(r for r in rows13 if r["cell"] == MXU_CELLS[-1][0])
-    bR, bC = t_bsr["blocksize"]
-    bsr_elems = t_bsr["nblocks"] * bR * bC
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
@@ -1920,15 +1970,12 @@ def main():
                t_sv["compress_routed_ms"], t_sv["compress_routed_plain_ms"],
                compress_bound(t_sv), t_sv["compress_library_ms"]),
         # blocks, B and the (mb R, N) output once, the indices; 2 flops per
-        # stored block element and column of B
+        # stored block element and column of B, three times over in TF32
+        # (phase 13's bound_ms; its fp32_fma_bound_ms is the FMA units')
         kernel("bsr_spmm", "bsr_spmm.cu", "bsr_spmm.py:62",
                launches12["bsr_spmm"], err12["bsr_spmm"],
                t_bsr["bsr_spmm_ms"], t_bsr["bsr_spmm_plain_ms"],
-               bound(4 * (bsr_elems + t_bsr["k"] * t_bsr["n"]
-                          + t_bsr["block_rows"] * bR * t_bsr["n"])
-                     + 4 * (t_bsr["block_rows"] + 1 + t_bsr["nblocks"]),
-                     2 * bsr_elems * t_bsr["n"]),
-               t_bsr["library_ms"]),
+               (t_bsr["bound_ms"], t_bsr["bound_by"]), t_bsr["library_ms"]),
         kernel("csr_densify_mxu", "densify_mxu.cu", "densify_mxu.py:89",
                launches12["csr_densify_mxu"], err12["csr_densify_mxu"],
                t_mxu["mxu_ms"], t_mxu["mxu_plain_ms"],

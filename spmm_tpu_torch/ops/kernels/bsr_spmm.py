@@ -3,20 +3,22 @@
 Port of `spmm_tpu/ops/kernels/bsr_spmm.py` (`bsr_spmm_pallas` and its eager
 wrapper `spmm_bsr_pallas`, here `bsr_spmm` and `spmm_bsr`).  On a CUDA
 tensor `bsr_spmm` launches the hand-written kernel of `csrc/bsr_spmm.cu`
-(one CTA per block row and 64 columns of B, the row's blocks walked in
-stored order, the sum kept in registers, fmaf in float32); on a CPU tensor
-it runs `bsr_spmm_plain`.  The kernel masks ragged K and N itself, so the
-wrapper pads nothing (the TPU wrapper pads K to C and N to the tile, then
-cuts back).
+(one CTA per block row, tile of B's columns and chunk of the block's rows,
+the row's blocks walked in stored order, the sum kept in registers, each
+product in 3xTF32 on the tensor cores: the Hopper form of the TPU kernel's
+`precision=HIGHEST`); on a CPU tensor it runs `bsr_spmm_plain`.  The kernel
+stages ragged K and N with zeros itself, so the wrapper pads nothing (the
+TPU wrapper pads K to C and N to the tile, then cuts back).
 
 `bsr_spmm_plain` is JAX's `_bsr_spmm` (`spmm_tpu/ops/spmm.py`, XLA's
 `dot_general` and `segment_sum`, no Pallas): the B slab of every block
 gathered, one `torch.bmm` in IEEE float32 (TF32 off), and each block row's
 partial products summed in stored order by
 `_primitives.segment_sum_inorder` (no atomics).  `spmm(via="bsr")` takes it
-on every device, as JAX takes `_bsr_spmm`.  Its order of additions differs
-from the kernel's (cuBLAS against one fmaf chain), so the two agree within
-a tolerance, not bitwise.
+on every device, as JAX takes `_bsr_spmm`.  Its order of additions and its
+products differ from the kernel's (cuBLAS's IEEE fp32 against split tf32
+products), so the two agree within 1e-6 of each entry's absolute sum
+(|A|·|B|)_ij, not bitwise.
 """
 
 from __future__ import annotations
@@ -86,12 +88,9 @@ def bsr_spmm(indptr: torch.Tensor, indices: torch.Tensor,
         # no launch, as in JAX (a zero-size grid is a launch error)
         return torch.zeros((m, N), dtype=torch.float32, device=b.device)
     out = torch.empty((m, N), dtype=torch.float32, device=b.device)
-    lib = _build.library()
-    with torch.cuda.device(b.device):
-        err = lib.spmm_bsr_spmm(
-            indptr.data_ptr(), indices.data_ptr(), blocks.data_ptr(),
-            b.data_ptr(), out.data_ptr(), indptr.numel() - 1, R, C, m, K, N,
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(b.get_device(), "spmm_bsr_spmm", indptr.data_ptr(),
+                        indices.data_ptr(), blocks.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), indptr.numel() - 1, R, C, m, K, N)
     _build.check(err, "bsr_spmm")
     _build.LAUNCHES["bsr_spmm"] += 1
     return out

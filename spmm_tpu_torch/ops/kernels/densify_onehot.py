@@ -3,16 +3,20 @@ pattern alone.
 
 Port of `spmm_tpu/ops/kernels/densify_onehot.py::densify_onehot` and
 `::densify_onehot_pattern`.  On a CUDA tensor each wrapper launches its
-hand-written kernel in `csrc/densify.cu` (one warp per row, a direct
-scatter: canonical positions are unique, so no atomics); on a CPU tensor it
-runs its plain version.  Both give the same bits: values are moved, never
-computed, and a stored zero stays 1 in the pattern.
+hand-written kernel in `csrc/densify.cu`; on a CPU tensor it runs its plain
+version.  Both give the same bits: values are moved, never computed, and a
+stored zero stays 1 in the pattern.  `densify_onehot` zero-fills its outputs
+and scatters into them (one warp per row: canonical positions are unique,
+so no atomics).  `densify_onehot_pattern` runs on every tile of the blocked
+engines' symbolic phase, so it makes one launch and nothing else a call: its
+kernel writes each window of the output once, zeros included, and the
+wrapper checks its arguments in one expression and launches through
+`_build.launch`.
 
 The TPU kernels' static chunk plan (`densify_onehot_plan`) and their bf16
 value splits exist because the TPU has no vector scatter; the CUDA kernels
-need neither, so the port takes no plan.  Bound on the card: the zero-fill
-of the outputs (6 bytes a dense cell, 2 for the pattern alone), not the
-scatter.
+need neither, so the port takes no plan.  Bound on the card: the bytes of
+the dense outputs (6 bytes a dense cell, 2 for the pattern alone).
 """
 
 from __future__ import annotations
@@ -77,17 +81,25 @@ def densify_onehot_pattern(indptr: torch.Tensor, indices: torch.Tensor,
     """The (m, k) bf16 structural 0/1 pattern of a canonical CSR (explicit
     zeros kept, empty rows 0), with no value stream: the symbolic phase of
     the blocked alg2/alg3 engines."""
-    check_csr(indptr, indices, None, m, "densify_onehot_pattern")
-    if indices.device.type == "cpu":
+    # one expression on every call; the worded checks only where it fails
+    dev = indices.get_device()
+    if not (indptr.dtype == indices.dtype == prim.INDEX_DTYPE
+            and indptr.shape == (m + 1,) and indices.dim() == 1
+            and indptr.get_device() == dev and indptr.is_contiguous()
+            and indices.is_contiguous()):
+        check_csr(indptr, indices, None, m, "densify_onehot_pattern")
+        raise ValueError("densify_onehot_pattern: bad arguments")
+    if not indices.is_cuda:
+        if indices.device.type != "cpu":
+            raise ValueError(f"densify_onehot_pattern: unsupported device "
+                             f"{indices.device}")
         return densify_onehot_pattern_plain(indptr, indices, m, k)
-    pat = torch.zeros((m, k), dtype=torch.bfloat16, device=indices.device)
     if m == 0 or k == 0 or indices.numel() == 0:
-        return pat  # a zero-size grid is a launch error
-    lib = _build.library()
-    with torch.cuda.device(indices.device):
-        err = lib.spmm_densify_pattern(
-            indptr.data_ptr(), indices.data_ptr(), pat.data_ptr(), m, k,
-            torch.cuda.current_stream().cuda_stream)
+        # no launch: a zero-size grid is a launch error
+        return torch.zeros((m, k), dtype=torch.bfloat16, device=indices.device)
+    pat = torch.empty((m, k), dtype=torch.bfloat16, device=indices.device)
+    err = _build.launch(dev, "spmm_densify_pattern", indptr.data_ptr(),
+                        indices.data_ptr(), pat.data_ptr(), m, k)
     _build.check(err, "densify_onehot_pattern")
     _build.LAUNCHES["densify_onehot_pattern"] += 1
     return pat

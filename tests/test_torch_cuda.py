@@ -774,6 +774,64 @@ def test_densify_pattern_empty_launches_nothing(dev):
     assert not pat.any() and pat.shape == (6, 9)
 
 
+def _pattern_arrays(m: int, k: int, per_row: int, seed: int):
+    """A CSR structure with each row's column ids drawn with replacement and
+    left unsorted (duplicates within a row), rows 2, 5, 8, ... empty."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, per_row + 1, m)
+    counts[2::3] = 0
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    indices = rng.integers(0, k, int(indptr[-1])).astype(np.int32)
+    if indices.size > 1:
+        indices[1] = indices[0]  # a duplicate at least
+    return indptr, indices
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,per_row", [
+    (40, 37, 30),        # unsorted, duplicates, k not a multiple of 8
+    (3, 10_000, 900),    # rows wider than one 4096-cell window
+    (700, 13, 9),        # windows that start and end inside rows
+    (1, 4099, 2000),     # m = 1 over two windows, a ragged last window
+    (9, 4096, 50),       # rows exactly one window wide
+])
+def test_densify_pattern_unsorted_duplicates_wide(dev, m, k, per_row):
+    from spmm_tpu_torch.ops.kernels.densify_onehot import (
+        densify_onehot_pattern, densify_onehot_pattern_plain)
+
+    indptr, indices = _on(dev, *_pattern_arrays(m, k, per_row, seed=m + k))
+    got = densify_onehot_pattern(indptr, indices, m, k)
+    want = densify_onehot_pattern_plain(indptr, indices, m, k)
+    torch.cuda.synchronize()
+    assert got.shape == (m, k)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_pattern_and_bsr_calls_are_one_launch_and_no_fill(dev):
+    """One kernel and no memset or fill kernel in a call's trace."""
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
+    from spmm_tpu_torch.ops.kernels.densify_onehot import (
+        densify_onehot_pattern)
+
+    indptr, indices = _on(dev, *_pattern_arrays(300, 1000, 40, seed=5))
+    a, ab = _bsr_on(dev, 256, 512, 0.05, (8, 128), seed=6)
+    x = torch.ones(512, 96, device=dev)
+    for key, call in (
+            ("densify_onehot_pattern",
+             lambda: densify_onehot_pattern(indptr, indices, 300, 1000)),
+            ("bsr_spmm",
+             lambda: bsr_spmm(ab.indptr, ab.indices, ab.data, x, 256))):
+        before = _build.LAUNCHES[key]
+        call()
+        assert _build.LAUNCHES[key] == before + 1
+        seen = _device_events(call)
+        if seen is None:
+            pytest.skip("the profiler's trace holds no device events here")
+        kernels, memsets = seen
+        assert memsets == 0 and len(kernels) == 1, (key, seen)
+
+
 def _scipy_check(a, b, c, alpha=1.0):
     """Structure bitwise against scipy's pattern product, values within
     rtol 1e-6 + atol 1e-6 * max|C| of its float64 product."""
@@ -890,6 +948,44 @@ def test_bsr_spmm_kernel_vs_plain(dev, m, n, density, blocksize, k):
     scale = bsr_spmm_plain(ab.indptr, ab.indices, ab.data.abs(), b.abs(), m)
     torch.cuda.synchronize()
     assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    assert_bitwise(bsr_spmm(*args), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [8, 64, 128, 256])
+@pytest.mark.parametrize("inputs", ["blocks N=200", "csr N=100",
+                                    "csr N=70"])
+def test_bsr_spmm_tensor_core_tiles(dev, R, inputs):
+    """C = 128 at every tile height the kernel picks, N not a multiple of
+    the tile (16-byte staging at N = 200 and 100, 4-byte at 70), ragged K
+    and m for the CSR inputs; within 1e-6 (|A| @ |X|)_ij of the plain
+    version and of float64, bitwise on rerun."""
+    from spmm_tpu_torch.models import block_sparse
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+
+    kind, n_cols = inputs.split(" N=")
+    if kind == "blocks":  # dense U[0,1) blocks, 3.5 block rows
+        m, k = 3 * R + R // 2, 512
+        ab = block_sparse(m, k, (R, 128), 0.5, seed=R, device=dev).tobsr(
+            (R, 128))
+    else:
+        m, k = 3 * R + 5, 293
+        ab = pt.random(m, k, 0.05, format="csr", seed=R,
+                       device=dev).tobsr((R, 128))
+    x = torch.from_numpy(np.random.default_rng(R).standard_normal(
+        (k, int(n_cols))).astype(np.float32)).to(dev)
+    args = (ab.indptr, ab.indices, ab.data, x, m)
+    before = _build.LAUNCHES["bsr_spmm"]
+    got = bsr_spmm(*args)
+    assert _build.LAUNCHES["bsr_spmm"] == before + 1
+    want = bsr_spmm_plain(*args)
+    scale = bsr_spmm_plain(ab.indptr, ab.indices, ab.data.abs(), x.abs(), m)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    s = ab.to_scipy().astype(np.float64)
+    xh = x.cpu().double().numpy()
+    err = np.abs(got.cpu().double().numpy() - s @ xh)
+    assert (err <= 1e-6 * (abs(s) @ np.abs(xh)) + 1e-30).all()
     assert_bitwise(bsr_spmm(*args), got)
 
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Time the SpMV kernels and the serving gather of one checkout of the
-PyTorch/CUDA port on one NVIDIA GPU beside their PyTorch library calls, or
-of two checkouts in turns (A, B, B, A), each turn in a process of its own.
+"""Time the SpMV kernels, the serving gather, the pattern densify, BSR
+SpMM and the alg3 count pass of one checkout of the PyTorch/CUDA port on
+one NVIDIA GPU beside their PyTorch library calls, or of two checkouts in
+turns (A, B, B, A), each turn in a process of its own.
 
     python3 tools/spmv_turns.py                     # this checkout
     python3 tools/spmv_turns.py --repo DIR          # the checkout at DIR
     python3 tools/spmv_turns.py --against DIR       # DIR, this, this, DIR
+    python3 tools/spmv_turns.py --only pattern bsr  # some groups only
+
+Groups (all by default): spmv, serving, pattern, bsr, count.
 
 SpMV cells: 1024^2/0.1 (seed 2008), 16384^2/5e-3 (seed 2014) and the
 power-law 2^20 matrix (`power_law_rows(2^20, 2^20, 16, alpha=1.5,
@@ -16,6 +20,16 @@ Serving cells: `spgemm_plan` at SpGEMM 1024^2/0.1 (seeds 2008/2009) and
 8192^2/1e-3 (seeds 2012/2013); timed: `compress_routed` (`extract_routed`
 of the plan's dense product, and its accumulate form written in place) and
 `torch.take` with int64 positions made once, outside the timing.
+Pattern cells: `densify_onehot_pattern` of B at SpGEMM 1024^2/0.1 (seed
+2009; the blocked engines' symbolic phase) and of B at 8192^2/1e-3 (seed
+2013) at the (k, P n_b) shape of the cf 0.2 alg3 sizing pass, beside CSR
+`to_dense()` of bf16 ones.  BSR cells: `bsr_spmm` at 4096^2/0.05, 4096^2/0.15,
+8192^2/0.02 and 32768^2/0.02 (128x128 blocks of `block_sparse`, seeds
+2016-2019, chip_smoke.py's cells) and at the CSR 8192^2/1e-3 (seed 2012)
+re-tiled at (8, 128), X of 256 columns N(0,1) from seed 2024, beside
+torch's BSR @ dense.  Count cells: the scan2 alg3 count pass (the sizing
+pass, with its readback) at cf 0.2 and 0.05 at SpGEMM 1024^2/0.1,
+1024^2/0.5 and 8192^2/1e-3, no library call.
 
 Per call: `call_ms`, the median CUDA-event time around one call (the host's
 wrapper included), taken in turns within the process (library, kernels,
@@ -26,7 +40,9 @@ and, for `spmv_routed` and `compress_routed`, the trace's kernels by name
 (`top`).  `bound_ms` is the least time of the work at 3.35 TB/s: for SpMV
 8 bytes an entry, indptr, x and y once; for the gather the positions
 (4 or 8 bytes an entry), the output, and `c` counted in the 32-byte
-sectors its entries touch.  Each turn prints one JSON line with the card's
+sectors its entries touch; for the pattern its 2 bytes a dense cell, indptr
+and indices; for BSR SpMM the larger of its bytes and its 3 * 2 *
+nblocks*R*C*N TF32 operations at 494.7 TFLOP/s.  Each turn prints one JSON line with the card's
 name and power limit.  Needs a CUDA device; imports neither jax nor
 spmm_tpu.
 """
@@ -43,6 +59,8 @@ import warnings
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_S = 3.35e12
+TF32_FLOPS = 494.7e12
+GROUPS = ("spmv", "serving", "pattern", "bsr", "count")
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -97,12 +115,14 @@ def busy_ms(torch, fn, calls=50):
     return sum(by_name.values()), [[k[:60], v] for k, v in top]
 
 
-def in_turns(torch, calls: dict, library: str, detail=()) -> dict:
+def in_turns(torch, calls: dict, library, detail=()) -> dict:
     """Each call's times; `call_ms` in turns (library, the others, the
-    others again, library), then the 200-call loop and the trace."""
+    others again, library; no library: the others twice), then the 200-call
+    loop and the trace."""
     others = [k for k in calls if k != library]
     row = {k: {"call_ms": []} for k in calls}
-    for key in [library, *others, *others, library]:
+    ends = [library] if library else []
+    for key in [*ends, *others, *others, *ends]:
         row[key]["call_ms"].append(median_ms(torch, calls[key]))
     for key, fn in calls.items():
         row[key]["loop_ms"] = loop_ms(torch, fn)
@@ -129,7 +149,17 @@ def spmv_cells(torch, pt, power_law_rows, dev):
         a.shape[1]).astype(np.float32)).to(dev)) for name, a in mats]
 
 
-def measure(repo: str) -> dict:
+def torch_sparse(torch, layout, *arrays, shape):
+    """torch's own sparse CSR or BSR tensor of the same arrays (int64
+    indices): the library calls' operand."""
+    make = {"csr": torch.sparse_csr_tensor, "bsr": torch.sparse_bsr_tensor}
+    indptr, indices, values = arrays
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # beta notices
+        return make[layout](indptr.long(), indices.long(), values, shape)
+
+
+def measure(repo: str, groups) -> dict:
     sys.path.insert(0, repo)
     import numpy as np
     import torch
@@ -148,16 +178,27 @@ def measure(repo: str) -> dict:
                          text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     out = {"repo": os.path.abspath(pt.__file__), "card": smi}
+    if "spmv" in groups:
+        spmv_turns(torch, pt, power_law_rows, kb, ko, kr, dev, out)
+    if "serving" in groups:
+        serving_turns(torch, np, pt, route, dev, out)
+    if "pattern" in groups:
+        pattern_turns(torch, pt, dev, out)
+    if "bsr" in groups:
+        bsr_turns(torch, np, pt, dev, out)
+    if "count" in groups:
+        count_turns(torch, pt, dev, out)
+    return out
+
+
+def spmv_turns(torch, pt, power_law_rows, kb, ko, kr, dev, out):
     for name, a, x in spmv_cells(torch, pt, power_law_rows, dev):
         m, n = a.shape
         args = (a.indptr, a.indices, a.data)
         binned = kb.spmv_binned_plan(*args, m, n)
         onehot = ko.spmv_onehot_plan(a.indptr, m, n)
         routed = kr.spmv_routed_plan(*args, m, n)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            ta = torch.sparse_csr_tensor(a.indptr.long(), a.indices.long(),
-                                         a.data, a.shape)
+        ta = torch_sparse(torch, "csr", *args, shape=a.shape)
         calls = {"torch_mv": lambda: torch.mv(ta, x),
                  "spmv_binned": lambda: kb.spmv_binned(x, binned),
                  "spmv_onehot": lambda: ko.spmv_onehot(*args, x, m, n,
@@ -171,6 +212,9 @@ def measure(repo: str) -> dict:
         row.update(in_turns(torch, calls, "torch_mv", ("spmv_routed",)))
         out[name] = row
         del ta, binned, onehot, routed
+
+
+def serving_turns(torch, np, pt, route, dev, out):
     rng = np.random.default_rng(2025)
     for name, nn, d, sa, sb in (("1024^2/0.1", 1024, 0.1, 2008, 2009),
                                 ("8192^2/1e-3", 8192, 1e-3, 2012, 2013)):
@@ -195,21 +239,116 @@ def measure(repo: str) -> dict:
         row.update(in_turns(torch, calls, "torch_take", ("compress_routed",)))
         out[f"serving {name}"] = row
         del plan, pc, c, pos64, prev
-    return out
+
+
+def pattern_turns(torch, pt, dev, out):
+    from spmm_tpu_torch.ops import spgemm_blocked as bl
+    from spmm_tpu_torch.ops.kernels.densify_onehot import (
+        densify_onehot_pattern)
+
+    for name, nn, d, seed, cf in (("1024^2/0.1 B", 1024, 0.1, 2009, None),
+                                  ("8192^2/1e-3 B, cf 0.2 sizing", 8192,
+                                   1e-3, 2013, 0.2)):
+        b = pt.random(nn, nn, d, format="csr", seed=seed, device=dev)
+        n_b, P = bl._alg3_grid(nn, nn, cf)[:2] if cf else (nn, 1)
+        n = P * n_b
+        ones = torch.ones(b.nnz, dtype=torch.bfloat16, device=dev)
+        tb = torch_sparse(torch, "csr", b.indptr, b.indices, ones,
+                          shape=(nn, n))
+        calls = {"to_dense": tb.to_dense,
+                 "densify_onehot_pattern": lambda: densify_onehot_pattern(
+                     b.indptr, b.indices, nn, n)}
+        row = {"shape": [nn, n], "nnz": b.nnz,
+               "bound_ms": (2 * nn * n + 4 * (nn + 1) + 4 * b.nnz)
+               / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, "to_dense",
+                            ("densify_onehot_pattern",)))
+        out[f"pattern {name}"] = row
+        del b, ones, tb
+
+
+def bsr_turns(torch, np, pt, dev, out):
+    from spmm_tpu_torch.models import block_sparse
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
+
+    rng = np.random.default_rng(2024)
+    cells = [(f"{n}^2/{d} (128, 128)", lambda n=n, d=d, seed=seed:
+              block_sparse(n, n, (128, 128), d, seed=seed,
+                           device=dev).tobsr((128, 128)))
+             for n, d, seed in ((4096, 0.05, 2016), (4096, 0.15, 2017),
+                                (8192, 0.02, 2018), (32768, 0.02, 2019))]
+    for name, make in (
+            *cells,
+            ("csr 8192^2/1e-3 -> (8, 128)", lambda: pt.random(
+                8192, 8192, 1e-3, format="csr", seed=2012,
+                device=dev).tobsr((8, 128)))):
+        ab = make()
+        m, k = ab.shape
+        R, C = ab.blocksize
+        x = torch.from_numpy(rng.standard_normal((k, 256)).astype(
+            np.float32)).to(dev)
+        tb = torch_sparse(torch, "bsr", ab.indptr, ab.indices, ab.data,
+                          shape=(m, k))
+        calls = {"torch_bsr_mm": lambda: tb @ x,
+                 "bsr_spmm": lambda: bsr_spmm(ab.indptr, ab.indices,
+                                              ab.data, x, m)}
+        mb = ab.indptr.numel() - 1
+        nbytes = 4 * (ab.nblocks * R * C + k * 256 + mb * R * 256 + mb + 1
+                      + ab.nblocks)
+        flops = 2 * ab.nblocks * R * C * 256
+        row = {"nblocks": ab.nblocks, "blocksize": [R, C],
+               "bound_ms": max(nbytes / HBM_BYTES_S,
+                               3 * flops / TF32_FLOPS) * 1e3}
+        library = "torch_bsr_mm"
+        try:
+            calls[library]()
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_error"], library = str(e)[:120], None
+            del calls["torch_bsr_mm"]
+        row.update(in_turns(torch, calls, library, ("bsr_spmm",)))
+        out[f"bsr {name}"] = row
+        del ab, x, tb
+
+
+def count_turns(torch, pt, dev, out):
+    from spmm_tpu_torch.ops import spgemm_blocked as bl
+
+    for name, nn, d, sa, sb in (("1024^2/0.1", 1024, 0.1, 2008, 2009),
+                                ("1024^2/0.5", 1024, 0.5, 2010, 2011),
+                                ("8192^2/1e-3", 8192, 1e-3, 2012, 2013)):
+        a = pt.random(nn, nn, d, format="csr", seed=sa, device=dev)
+        b = pt.random(nn, nn, d, format="csr", seed=sb, device=dev)
+        host = [t.cpu().numpy() for t in (a.indptr, a.indices, b.indptr,
+                                          b.indices)]
+        calls = {}
+        for cf in (0.2, 0.05):
+            n_b, P, _, m_pad, T = bl._alg3_grid(nn, nn, cf)
+            blocks = bl._Blocks(a, b, host, n_b, P, m_pad)
+
+            def count(blocks=blocks, n_b=n_b, T=T, P=P):
+                _, blockc = bl._alg3_count_fast(blocks, b.indptr, b.indices,
+                                                n_b, T, P)
+                return blockc.contiguous().cpu()
+
+            calls[f"alg3_cf{cf}_count"] = count
+        out[f"count {name}"] = in_turns(torch, calls, None)
+        del a, b, calls
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=HERE)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
     args = ap.parse_args()
     if args.against is None:
-        print(json.dumps(measure(os.path.abspath(args.repo))), flush=True)
+        print(json.dumps(measure(os.path.abspath(args.repo), args.only)),
+              flush=True)
         return
     other = os.path.abspath(args.against)
     for repo in (other, HERE, HERE, other):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--repo",
-                        repo], check=True)
+                        repo, "--only", *args.only], check=True)
 
 
 if __name__ == "__main__":
