@@ -12,14 +12,18 @@ for each:
   0. device and build: torch and CUDA versions, the card's name and power
      limit, the kernels' build time;
   1. each kernel against its plain PyTorch version on the same CUDA tensors,
-     bitwise;
+     bitwise; `extract_roll` also at the edges of its one-pass design
+     (rows wider than a tile, n = 1, 3, 15, 17, m = 1, all-false and
+     all-true masks, a mask off 16-byte alignment) at five caps each, and
+     bitwise on rerun;
   2. the main path, `spgemm(A, B, alg=0)`, at three cells of the reference's
      benchmark grid, held against scipy on the host (structure bitwise,
      values to rtol 1e-6 plus atol 1e-6*max|C|), bitwise on rerun, and with
      every kernel's launch count shown non-zero;
   3. CUDA-event timings (median of 25 runs after warm-up) of the full
      `spgemm`, the serving form `spgemm_fixed(cap=nnz)`, each layer of the
-     path, and each kernel against its plain version; the device's busy
+     path, and each kernel against its plain version (`extract_roll` also
+     per call of 200 back to back and by its device time); the device's busy
      time per `spgemm` from a torch.profiler trace, and its idle share;
   4. the four SpMV/SpMM kernels against their plain versions and scipy's
      float64 product, per row within 1e-6 of the row's absolute sum
@@ -50,7 +54,10 @@ for each:
      plus an empty output: `expand_routed` / `compress_routed` bitwise
      against their plain versions (the fused accumulate form included, also
      written in place; `compress_routed` with the plan's int32 positions
-     and with int64 ones);
+     and with int64 ones; `expand_routed` also at the edges of its windows,
+     plans of host arrays made on the card by default: rows wider than a
+     window, m = 1, k = 1, 3, 15, 17, a structure out of order, into a
+     workspace and into one off 16-byte alignment);
      plan calls against scipy, bitwise on rerun, with fresh values on the
      same structure, `values_accumulate`, `values_batch` (K = 8, each row
      bitwise a single call) and launch counts; whether the plan's output
@@ -61,7 +68,8 @@ for each:
      port's own CPU run of the same calls;
   9. their CUDA-event timings: plan call, `values`, `values_batch` per
      multiply, plan build (host clock), each routed kernel against its
-     plain version, `compress_routed` beside `torch.take` in turns, per
+     plain version (`expand_routed` also per call of 200 back to back and
+     by its device time), `compress_routed` beside `torch.take` in turns, per
      call, per call of 200 back to back and by the profiler's device time,
      with its bound (c counted in the 32-byte sectors it touches),
      `spgemm(alg=1)` and `spgemm_fixed` beside them, the device's busy time
@@ -357,9 +365,46 @@ def phase1(dev, cells):
                                       max_abs(got[2], want[2]))
         notes.append(f"extract bitwise at {name} g={holes} caps={caps}")
         del c, mask
+    edges = extract_edges(dev)
+    for name, c, mask in edges:
+        nnz = int(mask.sum())
+        for cap in (nnz, nnz + 5, nnz + 40_000, max(nnz - 5, 0), 0):
+            got = extract_roll(c, mask, cap)
+            again = extract_roll(c, mask, cap)
+            want = extract_roll_plain(c, mask, cap)
+            if not all(same_bits(x, y) and same_bits(z, y)
+                       for x, y, z in zip(got, want, again)):
+                raise AssertionError(f"extract kernel != plain (or rerun) at "
+                                     f"edge {name} cap={cap}")
+    notes.append(f"extract bitwise and on rerun at {len(edges)} edges "
+                 f"({', '.join(e[0] for e in edges)}) x 5 caps")
     torch.cuda.synchronize()
     print("phase 1: " + "; ".join(notes), flush=True)
     return err
+
+
+def extract_edges(dev):
+    """(name, c, mask) edges of the one-pass extraction: rows wider than a
+    4096-cell tile, many rows a tile (n = 1, 3, 15, 17), m = 1 with a
+    ragged last tile, all-false and all-true masks, and a mask that starts
+    off 16-byte alignment (a view into a larger buffer)."""
+    rng = np.random.default_rng(31)
+    out = []
+    for name, m, n, p in (("3x70000", 3, 70_000, 0.7),
+                          ("n=1", 20_000, 1, 0.5), ("n=3", 7_000, 3, 0.6),
+                          ("n=15", 3_000, 15, 0.5), ("n=17", 3_000, 17, 0.99),
+                          ("m=1", 1, 9_000, 0.5), ("all false", 333, 129, 0.0),
+                          ("all true", 333, 129, 1.0)):
+        mask = torch.from_numpy(rng.random((m, n)) < p).to(dev)
+        c = torch.from_numpy(rng.standard_normal((m, n)).astype(
+            np.float32)).to(dev) * mask
+        out.append((name, c, mask))
+    c, mask = out[3][1], out[3][2]
+    buf = torch.zeros(mask.numel() + 3, dtype=torch.bool, device=dev)
+    odd = buf[3:].view(mask.shape)
+    odd.copy_(mask)
+    out.append(("unaligned mask", c, odd))
+    return out
 
 
 class ScipyRef:
@@ -466,6 +511,9 @@ def phase3(cells, nnzs, smi):
             "value_gemm_ms": median_ms(value_gemm),
             "count_gemm_ms": median_ms(lambda: torch.matmul(a_pat, b_pat)),
             "extract_ms": median_ms(lambda: extract_roll(c, mask, cap)),
+            "extract_loop_ms": loop_ms(lambda: extract_roll(c, mask, cap)),
+            "extract_device_ms": kernel_ms(
+                lambda: extract_roll(c, mask, cap), "extract_tiles"),
             "extract_plain_ms": median_ms(
                 lambda: extract_roll_plain(c, mask, cap)),
             "spgemm_peak_mb": peak_mb,
@@ -1036,6 +1084,32 @@ def edge_pairs(dev):
             ("empty output 8x9x7", a0, b0)]
 
 
+def expand_edges():
+    """(name, indptr, indices, data, m, k) host CSRs at the edges of the
+    windowed expansion: rows wider than a 4096-cell window, m = 1 with a
+    ragged last window, many rows a window (k = 1, 3, 15, 17), and a
+    structure out of order (the plan sorts it)."""
+    rng = np.random.default_rng(32)
+    out = []
+    for name, m, k, p in (("3x70000", 3, 70_000, 0.01),
+                          ("m=1 4099", 1, 4099, 0.3), ("k=1", 9_000, 1, 0.5),
+                          ("k=3", 3_000, 3, 0.4), ("k=15", 700, 15, 0.2),
+                          ("k=17", 700, 17, 0.9)):
+        s = sp.random(m, k, p, format="csr", dtype=np.float32,
+                      random_state=rng)
+        s.data[::7] = -0.0  # the sign of zero travels
+        out.append((name, s.indptr.astype(np.int32),
+                    s.indices.astype(np.int32), s.data, m, k))
+    s = sp.random(200, 333, 0.05, format="csr", dtype=np.float32,
+                  random_state=rng)
+    ip, ix, d = s.indptr.astype(np.int32), s.indices.astype(np.int32), s.data
+    for r in range(200):  # each row's entries reversed
+        ix[ip[r]:ip[r + 1]] = ix[ip[r]:ip[r + 1]][::-1].copy()
+        d[ip[r]:ip[r + 1]] = d[ip[r]:ip[r + 1]][::-1].copy()
+    out.append(("unsorted 200x333", ip, ix, d, 200, 333))
+    return out
+
+
 def fresh(a, rng):
     """A with the same structure and new N(0,1) values."""
     vals = torch.from_numpy(rng.standard_normal(a.nnz).astype(np.float32))
@@ -1093,6 +1167,22 @@ def phase7(dev):
                 raise AssertionError(f"compress_routed in place != plain at "
                                      f"{name} {pc.pos.dtype}")
         del c
+    edges = expand_edges()
+    for name, indptr, indices, data, m, k in edges:
+        p = route.expand_route_plan(indptr, indices, m, k)  # on the card
+        vals = torch.from_numpy(data).to(dev)
+        ws = torch.full((m, k), float("nan"), device=dev)
+        odd = torch.full((m * k + 1,), 3.0, device=dev)[1:].view(m, k)
+        for emit in (True, False):
+            want = route.densify_routed_plain(vals, p, emit)
+            want = want if emit else (want,)
+            for out in (None, ws, odd):
+                got = route.densify_routed(vals, p, emit, out=out)
+                got = got if emit else (got,)
+                if not all(same_bits(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(
+                        f"expand_routed != plain at edge {name} (pattern "
+                        f"{emit}, out given: {out is not None})")
     torch.cuda.synchronize()
     # the main path: plan calls, fresh values, accumulate, batch
     _build.reset_launches()
@@ -1137,6 +1227,9 @@ def phase7(dev):
                      f"fresh={ratio_f:.3g} rerun, batch, accumulate bitwise; "
                      f"== spgemm(alg=1): {gap == 0} (max ulp {gap})")
         del out, alg1
+    notes.append(f"expand_routed bitwise at {len(edges)} edges "
+                 f"({', '.join(e[0] for e in edges)}), fresh, into a "
+                 "workspace and into one off 16-byte alignment")
     print(f"phase 7: plans built in {build_s:.2f} s; launches {launches}; "
           + "; ".join(notes), flush=True)
     return launches, err, dict(zip([p[0] for p in pairs],
@@ -1247,6 +1340,12 @@ def phase9(serving, esc_cells, smi):
                 lambda: plan.values_batch(av, bv)) / BATCH_K,
             "expand_routed_ms": median_ms(lambda: route.densify_routed(
                 a.data, plan._pa, emit_pattern=False)),
+            "expand_routed_loop_ms": loop_ms(lambda: route.densify_routed(
+                a.data, plan._pa, emit_pattern=False)),
+            "expand_routed_device_ms": kernel_ms(
+                lambda: route.densify_routed(a.data, plan._pa,
+                                             emit_pattern=False),
+                "expand_routed"),
             "expand_routed_plain_ms": median_ms(
                 lambda: route.densify_routed_plain(a.data, plan._pa,
                                                    emit_pattern=False)),

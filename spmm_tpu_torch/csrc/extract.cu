@@ -6,23 +6,51 @@
 // of spmm_tpu/ops/spgemm.py (`_extract_full`, `_extract_shift`,
 // `_extract_sort`): all four produce this same output.  The TPU version
 // resolves each output tile from a hole prefix with dynamic lane rolls,
-// because a TPU cannot compact a vector.  Hopper compacts directly, in two
-// kernels around a scan the wrapper runs:
+// because a TPU cannot compact a vector.  Hopper compacts directly, in one
+// pass over the flat mask:
 //
-//   1. spmm_extract_count:   one block per row, counts the row's kept cells.
-//   2. (wrapper)             exclusive int32 scan of the counts -> indptr.
-//   3. spmm_extract_compact: one block per row, walks the row in chunks of
-//      blockDim cells; each warp ranks its kept lanes with __ballot_sync and
-//      __popc, the block adds the warp totals, and a running offset carries
-//      across chunks.  Each kept cell writes col and value at
-//      indptr[row] + rank, so the order is row-major whatever the hole count.
+//   The flat (m, n) mask is cut into tiles of kThreads * kCells cells
+//   (4096, or 16384 for a mask of 2^24 cells or more), one work item each.
+//   A CTA takes its work item from an integer ticket (atomicAdd), so items
+//   start in order and a tile never waits on a tile that is not resident.
+//   It loads its tile's mask with 16-byte loads, kCells consecutive cells
+//   a thread, counts the kept cells (mask != 0), scans the counts in the
+//   block with warp shuffles, and lists the offsets of its kept cells in
+//   shared memory, in order.  Its exclusive prefix over the tiles before
+//   it comes from a decoupled look-back: the tile publishes its count
+//   (flag "aggregate"), warp 0 reads the status words of the 32 tiles
+//   before it at a time and adds them up to the nearest one that holds an
+//   inclusive prefix (flag "prefix"), then publishes its own inclusive
+//   prefix.  Flag and count share one 64-bit word, written and read whole,
+//   so no fence orders them; the counts are integers, so the result is
+//   bitwise the same whatever the timing.  The tile then writes col =
+//   flat % n and vals = c[flat] for each kept cell from its list
+//   (consecutive threads write consecutive slots: writing each thread's
+//   own cells instead took 3x as long on a dense mask), and indptr[r] for
+//   each row r whose first cell r*n lies in the tile: the tile's prefix
+//   plus the kept cells of the tile before r*n.  The last tile writes
+//   indptr[m].  Each tile's CTA runs its phases in turn, so a large mask
+//   (many tiles a CTA slot) takes 16384-cell tiles: fewer CTAs, each with
+//   four 16-byte loads a thread in flight.
 //
-// Output slots at or past `cap` are not written (the wrapper zero-fills
-// them), which gives the padded serving layout for cap > nnz.
+//   Slots at or past `cap` are not written by the tiles; slots in
+//   [min(nnz, cap), cap) are zeroed by the work items after the last tile,
+//   each over kTailSlots slots, once the last tile's inclusive prefix (nnz)
+//   is published.  Their tickets come after every tile's, so the tiles
+//   they wait on are resident.  Every output slot is written once, and no
+//   fill runs before the kernel.
 //
-// Bound: bytes.  Pass 1 reads the mask (1 byte a cell), pass 3 reads it again
-// plus 4 bytes for every kept value, and writes 8 bytes per kept cell.  A
-// later version can fuse the two passes with a decoupled look-back scan.
+// The status words and the ticket are reset by a cudaMemsetAsync of a
+// workspace the wrapper allocates per call, in the same C entry: one host
+// call, two device operations, and no state shared across calls or
+// streams.  The ticket is the only atomic; there are no float atomics.
+//
+// Bound: bytes.  The mask is read once (1 byte a cell), the kept values
+// once (4 bytes each), and col, vals and indptr written once (8 bytes a
+// kept cell, 4 a row).  The parent design read the mask twice, in a count
+// pass and a per-row compaction pass around a scan of its own.
+//
+// Offsets into c fit int32: the wrapper checks m*n < 2^31.
 
 #include <cuda_runtime.h>
 
@@ -30,77 +58,227 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kAggregate = 1ull << 32;  // flag: count only
+constexpr unsigned long long kPrefix = 2ull << 32;     // flag: inclusive
+constexpr int kTailSlots = kThreads * 64;  // output slots a tail item zeroes
 
-__global__ void count_rows(const unsigned char* __restrict__ mask,
-                           int* __restrict__ counts, int n) {
-  const unsigned char* mrow =
-      mask + static_cast<long long>(blockIdx.x) * n;
-  int c = 0;
-  for (int j = threadIdx.x; j < n; j += kThreads) c += mrow[j] != 0;
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-  __shared__ int warp_sum[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = c;
-  __syncthreads();
-  if (warp == 0) {
-    c = lane < kWarps ? warp_sum[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-    if (lane == 0) counts[blockIdx.x] = c;
-  }
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
 }
 
-__global__ void compact_rows(const float* __restrict__ c,
-                             const unsigned char* __restrict__ mask,
-                             const int* __restrict__ indptr,
-                             int* __restrict__ col, float* __restrict__ vals,
-                             int n, int cap) {
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  __shared__ int warp_total[kWarps];
-  int out = indptr[blockIdx.x];
-  for (int j0 = 0; j0 < n; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    const bool keep = j < n && mask[base + j] != 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) warp_total[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = warp_total[w];
-      before += w < warp ? t : 0;
-      total += t;
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Bit b set where byte b of w is non-zero (four bytes -> four bits).
+__device__ __forceinline__ unsigned nibble(unsigned w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Bit j set where mask[cell + j] is kept, for j < kCells; cells at or past
+// `total` are not.
+template <int kCells>
+__device__ __forceinline__ unsigned long long load_bits(
+    const unsigned char* __restrict__ mask, unsigned cell, unsigned total,
+    bool aligned) {
+  unsigned long long bits = 0;
+  if (aligned && cell + kCells <= total) {
+    const uint4* p = reinterpret_cast<const uint4*>(mask + cell);
+#pragma unroll
+    for (int q = 0; q < kCells / 16; ++q) {
+      const uint4 v = __ldcs(p + q);
+      const unsigned b16 = nibble(v.x) | nibble(v.y) << 4 |
+                           nibble(v.z) << 8 | nibble(v.w) << 12;
+      bits |= static_cast<unsigned long long>(b16) << (16 * q);
     }
-    if (keep) {
-      const int p = out + before + __popc(ballot & below);
-      if (p < cap) {
-        col[p] = j;
-        vals[p] = c[base + j];
-      }
-    }
-    out += total;
-    __syncthreads();  // warp_total is rewritten by the next chunk
+    return bits;
   }
+  for (unsigned j = 0; j < kCells && cell + j < total; ++j) {
+    if (mask[cell + j] != 0) bits |= 1ull << j;
+  }
+  return bits;
+}
+
+// The exclusive prefix of `tile` over the tiles before it, by warp 0 (all
+// 32 lanes return it), after publishing the tile's count `mine`.
+__device__ int look_back(unsigned long long* tiles, int tile, int mine,
+                         int lane) {
+  if (tile == 0) {
+    if (lane == 0) store_status(tiles, kPrefix | mine);
+    return 0;
+  }
+  if (lane == 0) store_status(tiles + tile, kAggregate | mine);
+  // lane l reads tile look - l; a window in which a tile it needs has not
+  // published yet is read again.  (Eight windows a round trip, all loads
+  // in flight, and blocks of 512 or 1024 threads were slower on the
+  // H100.)
+  long long look = tile - 1;
+  int prefix = 0;
+  while (true) {
+    const long long idx = look - lane;
+    const unsigned long long s = idx >= 0 ? load_status(tiles + idx)
+                                          : kPrefix;
+    const unsigned flag = static_cast<unsigned>(s >> 32);
+    const unsigned waiting = __ballot_sync(kFull, flag == 0);
+    const unsigned prefixed = __ballot_sync(kFull, flag == 2);
+    // the lanes up to and including the nearest prefix: all 32 if none
+    const unsigned need =
+        prefixed ? ((prefixed & (0u - prefixed)) << 1) - 1u : kFull;
+    if (waiting & need) {
+      __nanosleep(32);
+      continue;
+    }
+    int v = (need >> lane) & 1 ? static_cast<int>(static_cast<unsigned>(s))
+                               : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    prefix += v;
+    if (prefixed) break;
+    look -= 32;
+  }
+  if (lane == 0) {
+    store_status(tiles + tile, kPrefix | static_cast<unsigned>(prefix + mine));
+  }
+  return prefix;
+}
+
+// status[0] is the ticket; status[1 + t] tile t's status word; both zero
+// at launch.  A tile is kThreads * kCells cells, kCells consecutive cells
+// a thread.
+template <int kCells>
+__global__ void __launch_bounds__(kThreads)
+    extract_tiles(const float* __restrict__ c,
+                  const unsigned char* __restrict__ mask,
+                  unsigned long long* status, int* __restrict__ indptr,
+                  int* __restrict__ col, float* __restrict__ vals, int m,
+                  int n, int cap, int ntiles) {
+  constexpr int kTile = kThreads * kCells;
+  __shared__ unsigned short kept[kTile];  // offsets of the kept cells
+  __shared__ unsigned long long bits_of[kThreads];
+  __shared__ int before[kThreads];        // kept cells before each thread's
+  __shared__ int warp_total[kWarps];
+  __shared__ int item;
+  __shared__ int base_s;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) item = static_cast<int>(
+      atomicAdd(reinterpret_cast<unsigned*>(status), 1u));
+  __syncthreads();
+  const int tile = item;
+  unsigned long long* tiles = status + 1;
+
+  if (tile >= ntiles) {
+    // zero the slots [max(nnz, j * kTailSlots), min(cap, (j + 1) *
+    // kTailSlots)) once the last tile has published nnz
+    if (t == 0) {
+      unsigned long long s = load_status(tiles + ntiles - 1);
+      while ((s >> 32) != 2) {
+        __nanosleep(64);
+        s = load_status(tiles + ntiles - 1);
+      }
+      base_s = static_cast<int>(static_cast<unsigned>(s));
+    }
+    __syncthreads();
+    const long long j = tile - ntiles;
+    const long long lo = max(static_cast<long long>(base_s), j * kTailSlots);
+    const long long hi = min(static_cast<long long>(cap),
+                             (j + 1) * kTailSlots);
+    for (long long i = lo + t; i < hi; i += kThreads) {
+      col[i] = 0;
+      vals[i] = 0.0f;
+    }
+    return;
+  }
+
+  // every cell offset fits int32 (m*n < 2^31), and a tile's end unsigned
+  const unsigned total = static_cast<unsigned>(m) * n;
+  const unsigned t0 = static_cast<unsigned>(tile) * kTile;
+  const bool aligned = (reinterpret_cast<unsigned long long>(mask) & 15) == 0;
+  const unsigned long long bits =
+      load_bits<kCells>(mask, t0 + t * kCells, total, aligned);
+  const int count = __popcll(bits);
+  int incl = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int excl = incl - count;
+  int tile_total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = warp_total[w];
+    excl += w < warp ? x : 0;
+    tile_total += x;
+  }
+  before[t] = excl;
+  bits_of[t] = bits;
+  for (unsigned long long b = bits, r = excl; b != 0; b &= b - 1, ++r) {
+    kept[r] = static_cast<unsigned short>(t * kCells + __ffsll(b) - 1);
+  }
+  if (warp == 0) {
+    const int prefix = look_back(tiles, tile, tile_total, lane);
+    if (lane == 0) base_s = prefix;
+  }
+  __syncthreads();
+  const int base = base_s;
+
+  // the kept cells in order: consecutive threads, consecutive slots
+  const int last = min(tile_total, cap - base);
+#pragma unroll 8
+  for (int i = t; i < last; i += kThreads) {
+    const int flat = static_cast<int>(t0 + kept[i]);
+    col[base + i] = flat % n;
+    vals[base + i] = c[flat];
+  }
+  // the rows r with t0 <= r*n < t1 start in this tile
+  const unsigned un = n;
+  const unsigned r1 = (min(t0 + kTile, total) - 1) / un + 1;
+  for (unsigned r = (t0 + un - 1) / un + t; r < r1; r += kThreads) {
+    const int o = static_cast<int>(r * un - t0);
+    const int th = o / kCells;
+    const int j = o - th * kCells;
+    indptr[r] = base + before[th] + __popcll(bits_of[th] & ((1ull << j) - 1));
+  }
+  if (tile == ntiles - 1 && t == 0) indptr[m] = base + tile_total;
 }
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() of the launch.  The
-// caller guarantees m > 0 and n > 0.
-extern "C" int spmm_extract_count(const unsigned char* mask, int* counts,
-                                  int m, int n, void* stream) {
-  count_rows<<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mask, counts, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int spmm_extract_compact(const float* c, const unsigned char* mask,
-                                    const int* indptr, int* col, float* vals,
-                                    int m, int n, int cap, void* stream) {
-  compact_rows<<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, mask, indptr, col, vals, n, cap);
+// Launches on `stream`: a cudaMemsetAsync of the workspace `ws`
+// ((m*n + tile_cells - 1) / tile_cells + 1 words of 8 bytes), then the
+// kernel; returns the first CUDA error.  The caller guarantees m, n > 0,
+// m*n < 2^31, 0 <= cap < 2^31, tile_cells 4096 or 16384 (16 or 64 cells
+// a thread), and outputs of m + 1 and cap entries; none needs a fill.
+extern "C" int spmm_extract_roll(const float* c, const unsigned char* mask,
+                                 unsigned long long* ws, int* indptr,
+                                 int* col, float* vals, int m, int n,
+                                 int cap, int tile_cells, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_cells != 4096 && tile_cells != 16384) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(m) * n;
+  const long long ntiles = (total + tile_cells - 1) / tile_cells;
+  const long long ntail = (static_cast<long long>(cap) + kTailSlots - 1) /
+                          kTailSlots;
+  cudaError_t err = cudaMemsetAsync(
+      ws, 0, static_cast<size_t>(ntiles + 1) * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(ntiles + ntail);
+  const int nt = static_cast<int>(ntiles);
+  if (tile_cells == 4096) {
+    extract_tiles<16><<<grid, kThreads, 0, s>>>(c, mask, ws, indptr, col,
+                                                vals, m, n, cap, nt);
+  } else {
+    extract_tiles<64><<<grid, kThreads, 0, s>>>(c, mask, ws, indptr, col,
+                                                vals, m, n, cap, nt);
+  }
   return static_cast<int>(cudaGetLastError());
 }

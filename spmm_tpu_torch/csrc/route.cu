@@ -12,14 +12,15 @@
 // 128-entry block through two static lane-gather tables and two
 // transposes.  Hopper addresses memory per thread, so the plan keeps only
 // the idea: every entry's flat dense position row*cols + col, computed once
-// at plan time and kept on the card (expand: int64; compress: int32 where
-// m*n < 2^31, else int64).  Per call:
+// at plan time and kept on the card (expand: int64, rising, with a window
+// table; compress: int32 where m*n < 2^31, else int64).  Per call:
 //
-//   expand_routed:   val[pos[i]] = vals[i]     (and pat[pos[i]] = bf16 1.0)
+//   expand_routed:   val = 0, pat = 0, then val[pos[i]] = vals[src[i]]
+//                    (pat[pos[i]] = bf16 1.0), every cell written once
 //   compress_routed: out[i] = alpha * c[pos[i]], or with `prev`
 //                    out[i] = beta * prev[i] + alpha * c[pos[i]]
 //
-// Positions are unique, so the scatter needs no atomics and both kernels are
+// Positions are unique, so neither kernel needs atomics and both are
 // deterministic.  Values are moved bitwise; an explicit stored zero writes
 // 0.0 to the values and 1 to the pattern, so it stays structural.  The
 // arithmetic of compress_routed is spelled with __fmul_rn / __fadd_rn: nvcc
@@ -28,9 +29,17 @@
 // version round twice.  `prev` may alias `out` (the in-place accumulate):
 // each thread reads and writes only its own slots.
 //
-// Bound: bytes.  expand_routed is bound by the zero-fill the wrapper launches
-// (4 bytes per dense cell, 6 with the pattern), not by its scatter of 4 + 8
-// bytes read and 4 written per entry; one thread per entry.
+// Bound: bytes.  expand_routed must write every dense cell (4 bytes, 6 with
+// the pattern) and read 8 bytes of position and 4 of value an entry (8 more
+// of source index for a structure that came out of order).  The design
+// writes each cell once: the flat output is cut into windows of kWin cells,
+// one CTA each; the CTA zeroes its window in shared memory, sets the cells
+// of the entries the plan's window table gives it, and after a barrier
+// writes the window out with 16-byte stores, zeros included, the values and
+// the pattern in the same launch.  Windows start at multiples of kWin
+// cells, so every store is aligned whatever k is (only a workspace `val`
+// given off 16-byte alignment, and the last window's ragged tail, take
+// narrow stores).  No fill runs before it.
 //
 // compress_routed reads 4 bytes of position (8 past 2^31 cells), writes 4
 // of output, and gathers c: 4 bytes an entry where the output structure is
@@ -55,18 +64,58 @@ constexpr int kVec = 4;                   // entries a thread, per tile
 constexpr int kTile = kThreads * kVec;    // entries a block, per tile
 constexpr unsigned short kBf16One = 0x3F80;  // bf16 bit pattern of 1.0
 
-__global__ void expand_routed(const float* __restrict__ vals,
-                              const long long* __restrict__ pos,
-                              float* __restrict__ val,
-                              unsigned short* __restrict__ pat,
-                              long long nnz) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < nnz; i += stride) {
-    const long long p = pos[i];
-    val[p] = vals[i];
-    if (pat != nullptr) pat[p] = kBf16One;
+constexpr int kWin = 4096;                // cells a CTA of expand_routed
+
+// One CTA per window [e0, e0 + n) of the flat (m, k) output: the entries
+// pos[win[w]:win[w + 1]] fall inside it (the plan's window table).
+__global__ void __launch_bounds__(kThreads)
+    expand_routed(const float* __restrict__ vals,
+                  const long long* __restrict__ pos,
+                  const long long* __restrict__ src,
+                  const long long* __restrict__ win,
+                  float* __restrict__ val, unsigned short* __restrict__ pat,
+                  long long cells) {
+  __shared__ float4 win_val4[kWin / 4];  // 16 KB
+  __shared__ uint4 win_pat4[kWin / 8];   // 8 KB
+  float* win_val = reinterpret_cast<float*>(win_val4);
+  unsigned short* win_pat = reinterpret_cast<unsigned short*>(win_pat4);
+  const long long e0 = static_cast<long long>(blockIdx.x) * kWin;
+  const int n = static_cast<int>(min(static_cast<long long>(kWin),
+                                     cells - e0));
+  const int t = threadIdx.x;
+  for (int i = t; i < kWin / 4; i += kThreads) {
+    win_val4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if (pat != nullptr) {
+    for (int i = t; i < kWin / 8; i += kThreads) {
+      win_pat4[i] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const long long end = win[blockIdx.x + 1];
+  __syncthreads();
+  for (long long i = win[blockIdx.x] + t; i < end; i += kThreads) {
+    const int w = static_cast<int>(pos[i] - e0);
+    win_val[w] = vals[src != nullptr ? src[i] : i];
+    if (pat != nullptr) win_pat[w] = kBf16One;
+  }
+  __syncthreads();
+  float* out = val + e0;
+  int done = 0;  // cells written with 16-byte stores
+  if ((reinterpret_cast<unsigned long long>(out) & 15) == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int i = t; i < n / 4; i += kThreads) out4[i] = win_val4[i];
+    done = n / 4 * 4;
+  }
+  for (int i = done + t; i < n; i += kThreads) out[i] = win_val[i];
+  if (pat != nullptr) {
+    unsigned short* outp = pat + e0;
+    done = 0;
+    if ((reinterpret_cast<unsigned long long>(outp) & 15) == 0) {
+      uint4* outp4 = reinterpret_cast<uint4*>(outp);
+      for (int i = t; i < n / 8; i += kThreads) outp4[i] = win_pat4[i];
+      done = n / 8 * 8;
+    }
+    for (int i = done + t; i < n; i += kThreads) outp[i] = win_pat[i];
   }
 }
 
@@ -107,12 +156,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int blocks_for(long long n) {
-  // a grid-stride loop covers what a capped grid does not
-  const long long b = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(b < (1LL << 20) ? b : (1LL << 20));
-}
-
 template <typename Index>
 int launch_compress(const float* c, const Index* pos, const float* prev,
                     float* out, long long cap, float alpha, float beta,
@@ -131,15 +174,22 @@ int launch_compress(const float* c, const Index* pos, const float* prev,
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() of the launch.  The
-// caller guarantees n > 0, zero-filled `val`/`pat`, and positions inside
-// the dense array.  `pat` and `prev` may be null.
+// Both launch on `stream` and return cudaGetLastError() of the launch.
+//
+// expand_routed: the caller guarantees cells = m*k > 0, rising positions
+// inside the dense array with their window table, and a 16-byte aligned
+// `pat`; `src` and `pat` may be null.  Every cell of `val` (and `pat`) is
+// written: neither needs a fill.  `window` is the plan's window size, which
+// must be kWin.
 extern "C" int spmm_expand_routed(const float* vals, const long long* pos,
+                                  const long long* src, const long long* win,
                                   float* val, unsigned short* pat,
-                                  long long nnz, void* stream) {
-  expand_routed<<<blocks_for(nnz), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(vals, pos, val, pat,
-                                                       nnz);
+                                  long long cells, int window, void* stream) {
+  if (window != kWin) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (cells + kWin - 1) / kWin;
+  expand_routed<<<static_cast<unsigned>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(vals, pos, src, win,
+                                                       val, pat, cells);
   return static_cast<int>(cudaGetLastError());
 }
 

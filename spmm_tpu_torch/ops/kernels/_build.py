@@ -54,10 +54,8 @@ _SIGNATURES = {
     "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _P),
     # indptr, indices, pat, m, k, stream
     "spmm_densify_pattern": (_P, _P, _P, _I, _L, _P),
-    # mask, counts, m, n, stream
-    "spmm_extract_count": (_P, _P, _I, _I, _P),
-    # c, mask, indptr, col, vals, m, n, cap, stream
-    "spmm_extract_compact": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # c, mask, ws, indptr, col, vals, m, n, cap, tile_cells, stream
+    "spmm_extract_roll": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # indptr, indices, data, x, rows, class_off, piece_end, piece_row,
     # counters, partial, y, m, max_units, stream
     "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -79,8 +77,8 @@ _SIGNATURES = {
     "spmm_spmv_onehot": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P),
     # values, starts, lengths, nseg, width, dtype, out, stream
     "spmm_segment_sum": (_P, _P, _P, _L, _I, _I, _P, _P),
-    # vals, pos, val, pat, nnz, stream
-    "spmm_expand_routed": (_P, _P, _P, _P, _L, _P),
+    # vals, pos, src, win, val, pat, cells, window, stream
+    "spmm_expand_routed": (_P, _P, _P, _P, _P, _P, _L, _I, _P),
     # c, pos, wide (int64 pos), prev, out, cap, alpha, beta, stream
     "spmm_compress_routed": (_P, _P, _I, _P, _P, _L, _F, _F, _P),
     # indptr, indices, blocks, b, out, mb, R, C, m, K, N, stream

@@ -10,17 +10,27 @@ scatter or gather across lanes.  The port's plan keeps their idea without
 the tables: each entry's flat dense position row*cols + col, computed once
 from the structure and put on the plan's device once (int64 for expand;
 int32 for compress where the dense output has fewer than 2^31 cells, else
-int64: `pos_dtype`).  On a CUDA tensor the wrappers launch `csrc/route.cu`
-(`expand_routed`: one thread per entry; `compress_routed`: four entries a
-thread, a grid the card holds at once; no atomics); on a CPU
-tensor they run the plain versions beside them.  Kernel and plain version
-give the same bits: values are moved, and the one product (alpha, and beta
-for the accumulate) is rounded as in the JAX package.
+int64: `pos_dtype`).  The expand plan also holds its window table: the
+entry offsets of each window of `WINDOW` consecutive flat cells.  On a
+CUDA tensor the wrappers launch `csrc/route.cu` (`expand_routed`: one CTA
+per window writes the whole window once, zeros included;
+`compress_routed`: four entries a thread, a grid the card holds at once;
+no atomics); on a CPU tensor they run the plain versions beside them.
+Kernel and plain version give the same bits: values are moved, and the
+one product (alpha, and beta for the accumulate) is rounded as in the JAX
+package.
 
 The TPU gates do not exist here: `m*k % 128`, the VMEM budgets of the
 resident source, and the ultra-sparse mask whose 128-entry block spans
 more than 128 source rows.  So both plans apply to every structure; only an
-empty output structure (cap == 0) has no compress plan, as in JAX.
+empty output structure (cap == 0) has no compress plan, as in JAX.  The
+expand plan sorts a structure given out of order (and keeps each entry's
+source index); one with a duplicate position raises, since JAX's routing
+tables leave such a result undefined.
+
+A plan of a tensor lies on the tensor's device; a plan of a host array goes
+to the card unless `device="cpu"` is given, and raises where there is no
+card, as the constructors do.
 """
 
 from __future__ import annotations
@@ -32,13 +42,20 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
+from spmm_tpu_torch.sparse.base import resolve_device
+
+WINDOW = 4096  # flat cells a CTA of expand_routed: 16 KB of float32
 
 
 class ExpandPlan(NamedTuple):
     """Static plan: CSR values -> dense (m, k) (+ bf16 pattern)."""
     m: int
     k: int
-    pos: torch.Tensor    # (nnz,) int64 flat positions row*k + col
+    pos: torch.Tensor    # (nnz,) int64 flat positions row*k + col, rising
+    win: torch.Tensor    # (nwin + 1,) int64: entries of window w are
+    #                      pos[win[w]:win[w + 1]]
+    src: Optional[torch.Tensor] = None  # (nnz,) int64 value index of each
+    #                      position; None where the structure was canonical
 
 
 class CompressPlan(NamedTuple):
@@ -56,21 +73,39 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _device_of(x, device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+def window_table(pos: np.ndarray, cells: int, w: int) -> np.ndarray:
+    """Offsets into the rising positions `pos` of each window of `w`
+    consecutive flat cells of a dense array of `cells` cells: window i holds
+    pos[table[i]:table[i + 1]]."""
+    nwin = -(-int(cells) // w)
+    return np.searchsorted(pos, np.arange(nwin + 1, dtype=np.int64) * w)
 
 
 def expand_route_plan(indptr, indices, m: int, k: int,
                       device=None) -> ExpandPlan:
     """The densify plan of a CSR structure (arrays or tensors), on `device`
-    (default: the device of `indices`, else the CPU).  Always applies."""
+    (default: the device of `indices`; a host array's on the card).
+    Always applies; raises on a column id outside [0, k) and on a
+    duplicate position."""
     ip = _host(indptr).astype(np.int64)
+    cols = _host(indices).astype(np.int64)
+    dev = resolve_device(device, indices)
+    if cols.size and (cols.min() < 0 or cols.max() >= k):
+        raise ValueError(f"expand_route_plan: column ids must lie in "
+                         f"[0, {k})")
     rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ip))
-    flat = rows * int(k) + _host(indices).astype(np.int64)
-    return ExpandPlan(int(m), int(k), torch.from_numpy(flat).to(
-        _device_of(indices, device)))
+    flat = rows * int(k) + cols
+    src = None
+    if flat.size > 1 and not (np.diff(flat) > 0).all():
+        src = np.argsort(flat, kind="stable")
+        flat = flat[src]
+        if not (np.diff(flat) > 0).all():
+            raise ValueError("expand_route_plan: the structure holds a "
+                             "duplicate position; sum duplicates first")
+    win = window_table(flat, int(m) * int(k), WINDOW)
+    return ExpandPlan(int(m), int(k), torch.from_numpy(flat).to(dev),
+                      torch.from_numpy(win).to(dev),
+                      None if src is None else torch.from_numpy(src).to(dev))
 
 
 def pos_dtype(m: int, n: int) -> np.dtype:
@@ -99,14 +134,16 @@ def compress_plan_from_flat(flat: np.ndarray, m: int, n: int,
 
 def compress_route_plan(mask, n: int, device=None) -> Optional[CompressPlan]:
     """The extraction plan of an (m, n) output mask (array or tensor), on
-    `device` (default: the mask's); None when the mask is empty."""
+    `device` (default: the mask's; a host array's on the card); None when
+    the mask is empty."""
+    dev = resolve_device(device, mask)
     mask_h = _host(mask)
     flat = np.flatnonzero(mask_h.ravel()).astype(np.int64)
-    return compress_plan_from_flat(flat, mask_h.shape[0], n,
-                                   _device_of(mask, device))
+    return compress_plan_from_flat(flat, mask_h.shape[0], n, dev)
 
 
-def _check_vals(vals: torch.Tensor, plan: ExpandPlan) -> None:
+def _check_expand(vals: torch.Tensor, plan: ExpandPlan, out) -> None:
+    """Raise, worded, on what `densify_routed` does not take."""
     if (vals.dtype != torch.float32 or vals.dim() != 1
             or not vals.is_contiguous()):
         raise ValueError(f"densify_routed: values must be a contiguous 1-D "
@@ -118,25 +155,26 @@ def _check_vals(vals: torch.Tensor, plan: ExpandPlan) -> None:
     if vals.device != plan.pos.device:
         raise ValueError(f"densify_routed: values are on {vals.device}, the "
                          f"plan on {plan.pos.device}")
-
-
-def _dense_out(out, shape, device) -> torch.Tensor:
-    """A zero-filled (shape) float32 tensor: `out` reused when given."""
-    if out is None:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    if (out.shape != shape or out.dtype != torch.float32
-            or out.device != device or not out.is_contiguous()):
+    shape = (plan.m, plan.k)
+    if out is not None and (out.shape != shape or out.dtype != torch.float32
+                            or out.device != vals.device
+                            or not out.is_contiguous()):
         raise ValueError(f"densify_routed: out must be a contiguous float32 "
-                         f"tensor of shape {shape} on {device}")
-    return out.zero_()
+                         f"tensor of shape {shape} on {vals.device}")
+
+
+def _plan_vals(vals: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
+    """The values in the order of the plan's positions."""
+    return vals if plan.src is None else vals[plan.src]
 
 
 def densify_routed_plain(vals: torch.Tensor, plan: ExpandPlan,
                          emit_pattern: bool = True, out=None):
     """Plain PyTorch version of `expand_routed`, on any device."""
     shape = (plan.m, plan.k)
-    dense = _dense_out(out, shape, vals.device)
-    dense.view(-1)[plan.pos] = vals
+    dense = (torch.zeros(shape, dtype=torch.float32, device=vals.device)
+             if out is None else out.zero_())
+    dense.view(-1)[plan.pos] = _plan_vals(vals, plan)
     if not emit_pattern:
         return dense
     pat = torch.zeros(shape, dtype=torch.bfloat16, device=vals.device)
@@ -144,31 +182,74 @@ def densify_routed_plain(vals: torch.Tensor, plan: ExpandPlan,
     return dense, pat
 
 
+def densify_routed_windows(vals: torch.Tensor, plan: ExpandPlan, w: int,
+                           emit_pattern: bool = True):
+    """CPU emulation of `expand_routed`'s index arithmetic at window size
+    `w`: the window table of the plan's positions, then each window zeroed,
+    set from its entries and written out whole.  For tests only."""
+    cells = plan.m * plan.k
+    table = window_table(plan.pos.cpu().numpy(), cells, w)
+    pos = plan.pos.cpu()
+    v = _plan_vals(vals, plan).cpu()
+    dense = torch.empty(cells, dtype=torch.float32)
+    pat = torch.empty(cells, dtype=torch.bfloat16)
+    for i in range(table.size - 1):
+        e0 = i * w
+        n = min(w, cells - e0)
+        buf = torch.zeros(w, dtype=torch.float32)
+        bits = torch.zeros(w, dtype=torch.bfloat16)
+        here = pos[table[i]:table[i + 1]] - e0
+        buf[here] = v[table[i]:table[i + 1]]
+        bits[here] = 1.0
+        dense[e0:e0 + n] = buf[:n]
+        pat[e0:e0 + n] = bits[:n]
+    dense = dense.view(plan.m, plan.k)
+    return (dense, pat.view(plan.m, plan.k)) if emit_pattern else dense
+
+
 def densify_routed(vals: torch.Tensor, plan: ExpandPlan,
                    emit_pattern: bool = True, out=None):
     """Dense (m, k) f32 from CSR values through the plan, plus (when
     `emit_pattern`) the structural bf16 pattern.  Values are moved bitwise;
     empty cells are +0.0.  `out`, when given, is a (m, k) f32 workspace
-    that is zero-filled and written (the serving batch reuses one)."""
-    _check_vals(vals, plan)
-    if vals.device.type == "cpu":
-        return densify_routed_plain(vals, plan, emit_pattern, out)
-    if vals.device.type != "cuda":
-        raise ValueError(f"densify_routed: unsupported device {vals.device}")
+    that is overwritten whole (the serving batch reuses one)."""
+    # one expression on every call, cheapest first; the worded checks only
+    # where it fails
+    pos = plan.pos
+    dev = vals.get_device()
     shape = (plan.m, plan.k)
-    dense = _dense_out(out, shape, vals.device)
-    pat = (torch.zeros(shape, dtype=torch.bfloat16, device=vals.device)
+    if not (vals.dtype == torch.float32 and vals.shape == pos.shape
+            and pos.get_device() == dev and vals.is_contiguous()
+            and (out is None or (out.dtype == torch.float32
+                                 and out.shape == shape
+                                 and out.get_device() == dev
+                                 and out.is_contiguous()))):
+        _check_expand(vals, plan, out)
+        raise ValueError("densify_routed: arguments do not fit the plan")
+    if not vals.is_cuda:
+        if vals.device.type != "cpu":
+            raise ValueError(f"densify_routed: unsupported device "
+                             f"{vals.device}")
+        return densify_routed_plain(vals, plan, emit_pattern, out)
+    empty = not vals.numel()  # no entries: all zeros, nothing to launch
+    alloc = torch.zeros if empty else torch.empty
+    if out is None:
+        out = alloc(shape, dtype=torch.float32, device=vals.device)
+    elif empty:
+        out.zero_()
+    pat = (alloc(shape, dtype=torch.bfloat16, device=vals.device)
            if emit_pattern else None)
-    if vals.numel():  # a zero-size grid is a launch error
-        lib = _build.library()
-        with torch.cuda.device(vals.device):
-            err = lib.spmm_expand_routed(
-                vals.data_ptr(), plan.pos.data_ptr(), dense.data_ptr(),
-                pat.data_ptr() if emit_pattern else None, vals.numel(),
-                torch.cuda.current_stream().cuda_stream)
+    if not empty:
+        src = plan.src
+        err = _build.launch(dev, "spmm_expand_routed", vals.data_ptr(),
+                            pos.data_ptr(),
+                            None if src is None else src.data_ptr(),
+                            plan.win.data_ptr(), out.data_ptr(),
+                            None if pat is None else pat.data_ptr(),
+                            plan.m * plan.k, WINDOW)
         _build.check(err, "expand_routed")
         _build.LAUNCHES["expand_routed"] += 1
-    return (dense, pat) if emit_pattern else dense
+    return (out, pat) if emit_pattern else out
 
 
 def _vector_ok(t, cap: int, dev: int) -> bool:

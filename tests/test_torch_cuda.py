@@ -12,6 +12,8 @@ tests/test_torch_kernels.py, tests/test_torch_spgemm.py and
 tests/test_torch_spmv.py.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -72,21 +74,71 @@ def test_densify_empty_launches_nothing(dev):
     assert not val.any() and not pat.any() and val.shape == (6, 9)
 
 
+def _extract_case(name):
+    """(c, mask, kept count) of an edge of the one-pass extraction: rows
+    wider than a tile, many rows a tile, m = 1, all-false and all-true
+    masks, ragged last tiles."""
+    m, n, g = {"headline": (64, 256, 33), "full": (16, 128, 0),
+               "mostly_holes": (24, 100, 1900),
+               "wide_rows": (3, 70_000, 60_000),     # rows over 17 tiles
+               "n1": (20_000, 1, 9_000), "n3": (7_000, 3, 5_000),
+               "n15": (3_000, 15, 20_000), "n17": (3_000, 17, 1),
+               "m1": (1, 9_000, 4_000),              # ragged last tile
+               "narrow": (500, 7, 100)}[name] if name not in (
+                   "all_false", "all_true") else (333, 129, 0)
+    c, mask, nnz = masked_dense(m, n, g, seed=m + n + g)
+    if name == "all_false":
+        mask[:] = False
+        nnz = 0
+    return c, mask, nnz
+
+
+EXTRACT_EDGES = ["headline", "full", "mostly_holes", "wide_rows", "n1", "n3",
+                 "n15", "n17", "m1", "narrow", "all_false", "all_true"]
+
+
+@pytest.fixture(params=["small tiles", "large tiles"])
+def tiles(request, monkeypatch):
+    """The extraction kernel at each tile size: every mask here is below
+    LARGE_MASK, which "large tiles" lowers to 0."""
+    from spmm_tpu_torch.ops.kernels import extract_roll as er
+
+    if request.param == "large tiles":
+        monkeypatch.setattr(er, "LARGE_MASK", 0)
+    return request.param
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,g", [
-    (64, 256, 33),
-    (16, 128, 0),
-    (24, 100, 1900),
-    (3, 1000, 2500),          # rows span several 256-cell chunks
-    (500, 7, 100),            # rows narrower than a warp
-])
-def test_extract_kernel_bitwise_vs_plain(dev, m, n, g):
-    c, mask, nnz = masked_dense(m, n, g, seed=g + 5)
+@pytest.mark.parametrize("name", EXTRACT_EDGES)
+def test_extract_kernel_bitwise_vs_plain(dev, name, tiles):
+    """Every cap case (nnz, above it, below it, 0) at each edge and both
+    tile sizes; bitwise the plain version and on rerun."""
+    c, mask, nnz = _extract_case(name)
     c, mask = _on(dev, c, mask)
-    for cap in (nnz, nnz + 5, max(nnz - 5, 0), 0):
+    for cap in (nnz, nnz + 5, nnz + 40_000, max(nnz - 5, 0), nnz // 3, 0):
         before = _build.LAUNCHES["extract_roll"]
         got = extract_roll(c, mask, cap)
         assert _build.LAUNCHES["extract_roll"] == before + 1
+        want = extract_roll_plain(c, mask, cap)
+        again = extract_roll(c, mask, cap)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, want, again):
+            assert_bitwise(x, y)
+            assert_bitwise(z, x)
+
+
+@pytest.mark.gpu
+def test_extract_kernel_unaligned_mask(dev, tiles):
+    """A mask that starts off 16-byte alignment (a view into a larger
+    buffer) takes the kernel's byte loads; the plain version agrees."""
+    c, mask, nnz = masked_dense(300, 77, 5000, seed=9)
+    c, mask = _on(dev, c, mask)
+    buf = torch.zeros(mask.numel() + 3, dtype=torch.bool, device=dev)
+    odd = buf[3:].view(mask.shape)
+    odd.copy_(mask)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    for cap in (nnz, nnz + 9, nnz - 9):
+        got = extract_roll(c, odd, cap)
         want = extract_roll_plain(c, mask, cap)
         torch.cuda.synchronize()
         for x, y in zip(got, want):
@@ -377,6 +429,52 @@ def test_compress_call_is_one_launch_and_no_memset(dev):
         assert memsets == 0 and len(kernels) == 1, seen
 
 
+@pytest.mark.gpu
+def test_expand_and_extract_calls_launch_once(dev):
+    """expand_routed: one kernel and no memset or fill in a call's trace,
+    with and without the pattern; extract_roll: its C entry's memset of
+    the status words and one kernel, nothing else."""
+    from spmm_tpu_torch.ops.kernels import route
+
+    indptr, indices, data = csr_arrays(300, 1000, 0.05, seed=5)
+    plan = route.expand_route_plan(indptr, indices, 300, 1000, dev)
+    vals = torch.from_numpy(data).to(dev)
+    ws = torch.empty(300, 1000, device=dev)
+    c, mask, nnz = _on(dev, *masked_dense(300, 500, 20000, seed=4)[:2]) + (
+        130_000,)
+    for key, call, most in (
+            ("expand_routed", lambda: route.densify_routed(vals, plan), 1),
+            ("expand_routed", lambda: route.densify_routed(
+                vals, plan, emit_pattern=False, out=ws), 1),
+            ("extract_roll", lambda: extract_roll(c, mask, nnz), 2)):
+        before = _build.LAUNCHES[key]
+        call()
+        assert _build.LAUNCHES[key] == before + 1
+        seen = _device_events(call)
+        if seen is None:
+            pytest.skip("the profiler's trace holds no device events here")
+        kernels, memsets = seen
+        assert len(kernels) == 1 and len(kernels) + memsets <= most, (key,
+                                                                      seen)
+
+
+@pytest.mark.gpu
+def test_route_plans_of_host_arrays_go_to_the_card(dev):
+    """A plan of a host array lies on the card by default; a tensor's plan
+    where the tensor lies."""
+    from spmm_tpu_torch.ops.kernels import route
+
+    indptr, indices, _ = csr_arrays(30, 40, 0.2, seed=3)
+    p = route.expand_route_plan(indptr, indices, 30, 40)
+    assert p.pos.device.type == p.win.device.type == "cuda"
+    mask = np.eye(30, 40, dtype=bool)
+    assert route.compress_route_plan(mask, 40).pos.device.type == "cuda"
+    t = torch.from_numpy(indices)
+    assert route.expand_route_plan(indptr, t, 30, 40).pos.device.type == "cpu"
+    assert route.compress_route_plan(torch.from_numpy(mask),
+                                     40).pos.device.type == "cpu"
+
+
 def _full_row_arrays(n: int):
     """3 x n: an empty row, a full row of n entries, an empty row."""
     rng = np.random.default_rng(n)
@@ -533,28 +631,49 @@ def test_spmv_plan_on_card(dev):
     (33, 45, 0.3, {"zeros": 3, "empty_rows": (0, 7, 32)}),
     (1, 5000, 0.2, {}),       # one row
     (3000, 7, 0.5, {}),       # m*k not a multiple of 128
+    (3, 70_000, 0.01, {}),    # rows wider than a 4096-cell window
+    (1, 4099, 0.3, {}),       # m = 1, a ragged last window of 3 cells
+    (9000, 1, 0.5, {}), (3000, 3, 0.4, {}), (700, 15, 0.2, {}),
+    (700, 17, 0.9, {}),       # many rows a window
+    (50, 40, 0.2, {"unsorted": True}),    # out of order: the plan sorts
+    (200, 333, 0.05, {"unsorted": True}),
 ])
 @pytest.mark.parametrize("emit_pattern", [True, False])
 def test_expand_routed_kernel_bitwise_vs_plain(dev, m, k, density, kw,
                                                emit_pattern):
+    """Bitwise the plain version, on rerun, into a given workspace (filled
+    with garbage first: every cell is overwritten) and into one off 16-byte
+    alignment."""
     from spmm_tpu_torch.ops.kernels import route
+    from torch_port_helpers import unsorted_csr_arrays
 
-    indptr, indices, data = csr_arrays(m, k, density, seed=m + k, **kw)
+    kw = dict(kw)
+    if kw.pop("unsorted", False):
+        indptr, indices, data = unsorted_csr_arrays(m, k, density, m + k,
+                                                    max_run=1)
+    else:
+        indptr, indices, data = csr_arrays(m, k, density, seed=m + k, **kw)
     data[1::7] = -0.0  # bits travel, sign of zero included
     plan = route.expand_route_plan(indptr, indices, m, k, dev)
+    assert (plan.src is not None) == ((m, k) in ((50, 40), (200, 333)))
     vals = torch.from_numpy(data).to(dev)
     before = _build.LAUNCHES["expand_routed"]
     got = route.densify_routed(vals, plan, emit_pattern)
     assert _build.LAUNCHES["expand_routed"] == before + 1
     want = route.densify_routed_plain(vals, plan, emit_pattern)
-    ws = torch.full((m, k), 3.0, device=dev)
+    again = route.densify_routed(vals, plan, emit_pattern)
+    ws = torch.full((m, k), float("nan"), device=dev)
     reused = route.densify_routed(vals, plan, emit_pattern, out=ws)
+    buf = torch.full((m * k + 1,), 3.0, device=dev)
+    odd = buf[1:].view(m, k)
+    assert odd.data_ptr() % 16
+    shifted = route.densify_routed(vals, plan, emit_pattern, out=odd)
     torch.cuda.synchronize()
-    got, want, reused = ((x,) if not emit_pattern else x
-                         for x in (got, want, reused))
-    for x, y, z in zip(got, want, reused):
-        assert_bitwise(x, y)
-        assert_bitwise(z, y)
+    assert (reused if not emit_pattern else reused[0]) is ws
+    want = (want,) if not emit_pattern else want
+    for out in (got, again, reused, shifted):
+        for x, y in zip((out,) if not emit_pattern else out, want):
+            assert_bitwise(x, y)
 
 
 @pytest.mark.gpu
@@ -695,7 +814,8 @@ def _host_syncs(fn) -> int:
 
 @pytest.mark.gpu
 def test_host_syncs_on_card(dev):
-    """A plan call syncs never; ESC alg2 and alg3 read back twice each
+    """A plan call and `_alg1_fixed` sync never; ESC alg2 and alg3 read
+    back twice each
     (alg2: P and nnz; alg3: the row products and the chunk counts), as
     the JAX package does; `sum_duplicates` once."""
     from torch_port_helpers import unsorted_csr_arrays
@@ -705,6 +825,9 @@ def test_host_syncs_on_card(dev):
     plan = pt.spgemm_plan(a, b)
     plan(a.data, b.data)
     assert _host_syncs(lambda: plan(a.data, b.data)) == 0
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    sg._alg1_fixed(a, b, 1.0, 900)
+    assert _host_syncs(lambda: sg._alg1_fixed(a, b, 1.0, 900)) == 0
     assert _host_syncs(lambda: plan.values_accumulate(
         plan.values(a.data, b.data), a.data, b.data)) == 0
     assert _host_syncs(lambda: pt.spgemm(a, b, alg=2, impl="esc")) == 2

@@ -28,7 +28,7 @@ from spmm_tpu_torch.ops.kernels import _build  # noqa: E402
 from spmm_tpu_torch.ops.kernels import route  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
     assert_bitwise, assert_csr_bitwise, assert_csr_match, csr_arrays, pair,
-    unsorted_pair)
+    unsorted_csr_arrays, unsorted_pair)
 
 jax_serving = importlib.import_module("spmm_tpu.ops.serving")
 pt_serving = importlib.import_module("spmm_tpu_torch.ops.serving")
@@ -46,7 +46,7 @@ def _rows(indptr):
 def _expand_both(m, n, indptr, indices, data):
     jplan = jax_route.expand_route_plan(indptr, indices, m, n)
     want = jax_route.densify_routed(jnp.asarray(data), jplan, interpret=True)
-    plan = route.expand_route_plan(indptr, indices, m, n)
+    plan = route.expand_route_plan(indptr, indices, m, n, device="cpu")
     got = route.densify_routed(torch.from_numpy(data), plan)
     return got, want
 
@@ -99,7 +99,7 @@ def test_expand_value_only_and_workspace():
     """emit_pattern=False returns the values alone, as in JAX; `out` is
     zero-filled and reused."""
     indptr, indices, data = csr_arrays(37, 45, 0.3, seed=4)  # m*k % 128 != 0
-    plan = route.expand_route_plan(indptr, indices, 37, 45)
+    plan = route.expand_route_plan(indptr, indices, 37, 45, device="cpu")
     vals = torch.from_numpy(data)
     ws = torch.full((37, 45), 7.0)
     got = route.densify_routed(vals, plan, emit_pattern=False, out=ws)
@@ -114,10 +114,72 @@ def test_expand_value_only_and_workspace():
     assert jax_route.expand_route_plan(indptr, indices, 37, 45) is None
 
 
+def test_route_plans_of_host_arrays_go_to_the_card():
+    # as the constructors and spmv_onehot_plan: a host array's plan is made
+    # on the card, and raises where there is none; a tensor's plan lies
+    # where the tensor does
+    indptr, indices, _ = csr_arrays(30, 40, 0.2, seed=3)
+    mask = np.eye(30, 40, dtype=bool)
+    if torch.cuda.is_available():
+        assert route.expand_route_plan(indptr, indices, 30,
+                                       40).pos.device.type == "cuda"
+        assert route.compress_route_plan(mask, 40).pos.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            route.expand_route_plan(indptr, indices, 30, 40)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            route.compress_route_plan(mask, 40)
+    t = torch.from_numpy(indices)
+    p = route.expand_route_plan(indptr, t, 30, 40)
+    assert p.pos.device == p.win.device == torch.device("cpu")
+    assert route.compress_route_plan(torch.from_numpy(mask),
+                                     40).pos.device.type == "cpu"
+
+
+def test_expand_plan_sorts_out_of_order_structures():
+    """An unsorted structure without duplicates: positions sorted, each
+    with the index of its value; the result is that of the canonical
+    structure (scipy's toarray and JAX's plan of the sorted entries)."""
+    indptr, indices, data = unsorted_csr_arrays(128, 256, 0.1, seed=4,
+                                                max_run=1)
+    plan = route.expand_route_plan(indptr, indices, 128, 256, device="cpu")
+    assert plan.src is not None
+    assert (np.diff(plan.pos.numpy()) > 0).all()
+    rows = _rows(indptr)
+    flat = rows * 256 + indices
+    assert plan.pos.tolist() == flat[plan.src.numpy()].tolist()
+    dense, pattern = route.densify_routed(torch.from_numpy(data), plan)
+    ref = sp.csr_matrix((data, indices, indptr), shape=(128, 256))
+    assert_bitwise(dense, ref.toarray())
+    order = np.argsort(flat, kind="stable")
+    srt = sp.csr_matrix((data[order], indices[order], indptr),
+                        shape=(128, 256))
+    (jd, jp) = jax_route.densify_routed(
+        jnp.asarray(srt.data), jax_route.expand_route_plan(
+            srt.indptr, srt.indices, 128, 256), interpret=True)
+    assert_bitwise(dense, np.asarray(jd))
+    assert_bitwise(pattern, np.asarray(jp))
+    # a canonical structure carries no source index
+    ip, ix, _ = csr_arrays(128, 256, 0.1, seed=4)
+    assert route.expand_route_plan(ip, ix, 128, 256, device="cpu").src is None
+
+
+def test_expand_plan_refuses_duplicates_and_stray_columns():
+    indptr, indices, _ = unsorted_csr_arrays(60, 50, 0.2, seed=3, max_run=3)
+    with pytest.raises(ValueError, match="duplicate"):
+        route.expand_route_plan(indptr, indices, 60, 50, device="cpu")
+    ip, ix, _ = csr_arrays(20, 30, 0.2, seed=5)
+    for bad in (30, -1):
+        cols = ix.copy()
+        cols[3] = bad
+        with pytest.raises(ValueError, match="column ids"):
+            route.expand_route_plan(ip, cols, 20, 30, device="cpu")
+
+
 def _compress_both(mask, c):
     jplan = jax_route.compress_route_plan(mask, mask.shape[1])
     want = jax_route.extract_routed(jnp.asarray(c), jplan, interpret=True)
-    plan = route.compress_route_plan(mask, mask.shape[1])
+    plan = route.compress_route_plan(mask, mask.shape[1], device="cpu")
     return route.extract_routed(torch.from_numpy(c), plan), want, plan, jplan
 
 
@@ -167,11 +229,12 @@ def test_compress_ultra_sparse_applies():
     sparse_mask[0, 0] = sparse_mask[-1, -1] = True
     for mk in (mask, sparse_mask):
         assert jax_route.compress_route_plan(mk, mk.shape[1]) is None
-        plan = route.compress_route_plan(mk, mk.shape[1])
+        plan = route.compress_route_plan(mk, mk.shape[1], device="cpu")
         assert plan is not None and plan.cap == int(mk.sum())
         c = rng.standard_normal(mk.shape).astype(np.float32)
         assert_bitwise(route.extract_routed(torch.from_numpy(c), plan), c[mk])
-    assert route.compress_route_plan(np.zeros((8, 8), bool), 8) is None
+    assert route.compress_route_plan(np.zeros((8, 8), bool), 8,
+                                     device="cpu") is None
 
 
 def test_compress_alpha_and_accumulate():
@@ -181,7 +244,7 @@ def test_compress_alpha_and_accumulate():
     mask = rng.random((64, 96)) < 0.2
     c = rng.standard_normal((64, 96)).astype(np.float32)
     prev = rng.standard_normal(int(mask.sum())).astype(np.float32)
-    plan = route.compress_route_plan(mask, 96)
+    plan = route.compress_route_plan(mask, 96, device="cpu")
     alpha, beta = np.float32(-1.7), np.float32(0.3)
     got = route.extract_routed(torch.from_numpy(c), plan, alpha=-1.7)
     assert_bitwise(got, alpha * c[mask])
@@ -227,7 +290,7 @@ def test_compress_int32_and_int64_positions_agree(m, n, density):
     c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
     prev = torch.from_numpy(rng.standard_normal(int(mask.sum())).astype(
         np.float32))
-    plan = route.compress_route_plan(mask, n)
+    plan = route.compress_route_plan(mask, n, device="cpu")
     wide = plan._replace(pos=plan.pos.long())
     assert plan.pos.dtype == torch.int32
     assert_bitwise(wide.pos, np.flatnonzero(mask.ravel()).astype(np.int64))
@@ -258,8 +321,8 @@ def test_roundtrip_spgemm_shapes():
     m = k = n = 256
     A = csr_arrays(m, k, 0.1, seed=11)
     B = csr_arrays(k, n, 0.1, seed=12)
-    pa = route.expand_route_plan(A[0], A[1], m, k)
-    pb = route.expand_route_plan(B[0], B[1], k, n)
+    pa = route.expand_route_plan(A[0], A[1], m, k, device="cpu")
+    pb = route.expand_route_plan(B[0], B[1], k, n, device="cpu")
     da, _ = route.densify_routed(torch.from_numpy(A[2]), pa)
     db, _ = route.densify_routed(torch.from_numpy(B[2]), pb)
     Sa = sp.csr_matrix((A[2], A[1], A[0]), shape=(m, k))
@@ -268,7 +331,8 @@ def test_roundtrip_spgemm_shapes():
     mask = (Sa.toarray() != 0).astype(np.float64) @ (
         Sb.toarray() != 0).astype(np.float64) > 0
     c = (da.double() @ db.double()).float()
-    vals = route.extract_routed(c, route.compress_route_plan(mask, n))
+    vals = route.extract_routed(c, route.compress_route_plan(mask, n,
+                                                             "cpu"))
     np.testing.assert_allclose(vals.numpy(), cref[mask].astype(np.float32),
                                rtol=1e-5, atol=1e-6)
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the SpMV kernels, the serving gather, the pattern densify, BSR
-SpMM and the alg3 count pass of one checkout of the PyTorch/CUDA port on
-one NVIDIA GPU beside their PyTorch library calls, or of two checkouts in
-turns (A, B, B, A), each turn in a process of its own.
+"""Time the SpMV kernels, the serving gather and scatter, the pattern
+densify, BSR SpMM, the alg3 count pass, alg1's extraction and densify and
+the routed SpMM of one checkout of the PyTorch/CUDA port on one NVIDIA GPU
+beside their PyTorch library calls, or of two checkouts in turns (A, B, B,
+A), each turn in a process of its own.
 
     python3 tools/spmv_turns.py                     # this checkout
     python3 tools/spmv_turns.py --repo DIR          # the checkout at DIR
     python3 tools/spmv_turns.py --against DIR       # DIR, this, this, DIR
     python3 tools/spmv_turns.py --only pattern bsr  # some groups only
 
-Groups (all by default): spmv, serving, pattern, bsr, count.
+Groups (all by default): spmv, serving, pattern, bsr, count, expand,
+extract, spmm.
 
 SpMV cells: 1024^2/0.1 (seed 2008), 16384^2/5e-3 (seed 2014) and the
 power-law 2^20 matrix (`power_law_rows(2^20, 2^20, 16, alpha=1.5,
@@ -29,7 +31,18 @@ Pattern cells: `densify_onehot_pattern` of B at SpGEMM 1024^2/0.1 (seed
 re-tiled at (8, 128), X of 256 columns N(0,1) from seed 2024, beside
 torch's BSR @ dense.  Count cells: the scan2 alg3 count pass (the sizing
 pass, with its readback) at cf 0.2 and 0.05 at SpGEMM 1024^2/0.1,
-1024^2/0.5 and 8192^2/1e-3, no library call.
+1024^2/0.5 and 8192^2/1e-3, no library call.  Expand cells: the serving
+densify `expand_routed` (`densify_routed` of A through its plan, value only
+and with the pattern) at SpGEMM 1024^2/0.1 and 8192^2/1e-3 (seeds 2008 and
+2012), beside CSR `to_dense()`.  Extract cells: alg1's compaction
+`extract_roll` of the dense product under its mask at SpGEMM 1024^2/0.1,
+1024^2/0.5 and 8192^2/1e-3 (the seeds above) with cap = nnz and cap = nnz
++ 4096 (and, where the checkout has `LARGE_MASK`, at each tile size),
+beside `torch.masked_select` plus `nonzero` for context only (no one call
+computes the whole function); in the same turns alg1's `densify_onehot` of
+A and, at the 1024^2 cells, the whole `spgemm(a, b, alg=1)`.  SpMM cell:
+`spmm_routed` at 10000^2/0.01 (seed 2015), X of 64 columns N(0,1) from
+seed 2024, beside torch's CSR @ dense.
 
 Per call: `call_ms`, the median CUDA-event time around one call (the host's
 wrapper included), taken in turns within the process (library, kernels,
@@ -41,7 +54,10 @@ and, for `spmv_routed` and `compress_routed`, the trace's kernels by name
 8 bytes an entry, indptr, x and y once; for the gather the positions
 (4 or 8 bytes an entry), the output, and `c` counted in the 32-byte
 sectors its entries touch; for the pattern its 2 bytes a dense cell, indptr
-and indices; for BSR SpMM the larger of its bytes and its 3 * 2 *
+and indices; for the serving densify its 4 bytes a dense cell (6 with the
+pattern) and 12 an entry; for the extraction the mask's byte a cell, 4 an
+indptr entry and 12 a kept cell; for SpMM the CSR, X and the output once;
+for BSR SpMM the larger of its bytes and its 3 * 2 *
 nblocks*R*C*N TF32 operations at 494.7 TFLOP/s.  Each turn prints one JSON line with the card's
 name and power limit.  Needs a CUDA device; imports neither jax nor
 spmm_tpu.
@@ -60,7 +76,8 @@ import warnings
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_S = 3.35e12
 TF32_FLOPS = 494.7e12
-GROUPS = ("spmv", "serving", "pattern", "bsr", "count")
+GROUPS = ("spmv", "serving", "pattern", "bsr", "count", "expand", "extract",
+          "spmm")
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -188,6 +205,12 @@ def measure(repo: str, groups) -> dict:
         bsr_turns(torch, np, pt, dev, out)
     if "count" in groups:
         count_turns(torch, pt, dev, out)
+    if "expand" in groups:
+        expand_turns(torch, pt, route, dev, out)
+    if "extract" in groups:
+        extract_turns(torch, pt, dev, out)
+    if "spmm" in groups:
+        spmm_turns(torch, np, pt, kr, dev, out)
     return out
 
 
@@ -333,6 +356,93 @@ def count_turns(torch, pt, dev, out):
             calls[f"alg3_cf{cf}_count"] = count
         out[f"count {name}"] = in_turns(torch, calls, None)
         del a, b, calls
+
+
+def expand_turns(torch, pt, route, dev, out):
+    for name, nn, d, seed in (("1024^2/0.1", 1024, 0.1, 2008),
+                              ("8192^2/1e-3", 8192, 1e-3, 2012)):
+        a = pt.random(nn, nn, d, format="csr", seed=seed, device=dev)
+        plan = route.expand_route_plan(a.indptr, a.indices, nn, nn, dev)
+        ta = torch_sparse(torch, "csr", a.indptr, a.indices, a.data,
+                          shape=a.shape)
+        calls = {"to_dense": ta.to_dense,
+                 "expand_routed": lambda: route.densify_routed(
+                     a.data, plan, emit_pattern=False),
+                 "expand_routed_pattern": lambda: route.densify_routed(
+                     a.data, plan)}
+        row = {"nnz": a.nnz,
+               "bound_ms": (4 * nn * nn + 12 * a.nnz) / HBM_BYTES_S * 1e3,
+               "bound_pattern_ms": (6 * nn * nn + 12 * a.nnz)
+               / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, "to_dense",
+                            ("expand_routed", "expand_routed_pattern")))
+        out[f"expand {name}"] = row
+        del a, plan, ta
+
+
+def extract_turns(torch, pt, dev, out):
+    import importlib
+
+    from spmm_tpu_torch.ops.kernels import extract_roll as er
+    from spmm_tpu_torch.ops.kernels.densify_onehot import densify_onehot
+
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    for name, nn, d, sa, sb in (("1024^2/0.1", 1024, 0.1, 2008, 2009),
+                                ("1024^2/0.5", 1024, 0.5, 2010, 2011),
+                                ("8192^2/1e-3", 8192, 1e-3, 2012, 2013)):
+        a = pt.random(nn, nn, d, format="csr", seed=sa, device=dev)
+        b = pt.random(nn, nn, d, format="csr", seed=sb, device=dev)
+        c, mask, nnz = sg._alg1_dense_compute(a, b, 1.0)
+        nnz = int(nnz)
+
+        calls = {"masked_select_nonzero": lambda: (
+                     torch.masked_select(c, mask), mask.nonzero()),
+                 "extract_roll": lambda: er.extract_roll(c, mask, nnz),
+                 "extract_roll_pad4096": lambda: er.extract_roll(
+                     c, mask, nnz + 4096),
+                 "densify_onehot": lambda: densify_onehot(
+                     a.indptr, a.indices, a.data, nn, nn)}
+        if hasattr(er, "LARGE_MASK"):  # each tile size
+            def at_tiles(large):
+                keep, er.LARGE_MASK = er.LARGE_MASK, 0 if large else 2**31
+                try:
+                    return er.extract_roll(c, mask, nnz)
+                finally:
+                    er.LARGE_MASK = keep
+
+            for tile, large in zip(er.TILE_CELLS, (False, True)):
+                calls[f"extract_roll_tile{tile}"] = (
+                    lambda large=large: at_tiles(large))
+        if nn == 1024:
+            calls["spgemm_alg1"] = lambda: pt.spgemm(a, b, alg=1)
+        row = {"nnz": nnz, "a_nnz": a.nnz,
+               "bound_ms": (nn * nn + 4 * (nn + 1) + 12 * nnz)
+               / HBM_BYTES_S * 1e3,
+               "densify_bound_ms": (6 * nn * nn + 4 * (nn + 1) + 8 * a.nnz)
+               / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, "masked_select_nonzero",
+                            ("extract_roll", "densify_onehot")))
+        out[f"extract {name}"] = row
+        del a, b, c, mask, calls
+
+
+def spmm_turns(torch, np, pt, kr, dev, out):
+    rng = np.random.default_rng(2024)
+    a = pt.random(10000, 10000, 0.01, format="csr", seed=2015, device=dev)
+    m, n = a.shape
+    x = torch.from_numpy(rng.standard_normal((n, 64)).astype(
+        np.float32)).to(dev)
+    routed = kr.spmv_routed_plan(a.indptr, a.indices, a.data, m, n)
+    ta = torch_sparse(torch, "csr", a.indptr, a.indices, a.data,
+                      shape=a.shape)
+    calls = {"torch_csr_mm": lambda: ta @ x,
+             "spmm_routed": lambda: kr.spmm_routed(x, routed)}
+    nbytes = 8 * a.nnz + 4 * (m + 1) + 4 * 64 * (n + m)
+    row = {"nnz": a.nnz, "k": 64,
+           "bound_ms": max(nbytes / HBM_BYTES_S,
+                           2 * a.nnz * 64 / 67e12) * 1e3}
+    row.update(in_turns(torch, calls, "torch_csr_mm", ("spmm_routed",)))
+    out["spmm 10000^2/0.01 k=64"] = row
 
 
 def main():
