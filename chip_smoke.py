@@ -12,7 +12,10 @@ for each:
   0. device and build: torch and CUDA versions, the card's name and power
      limit, the kernels' build time;
   1. each kernel against its plain PyTorch version on the same CUDA tensors,
-     bitwise; `extract_roll` also at the edges of its one-pass design
+     bitwise and on rerun; `densify_onehot` at A and B of 1024^2/0.1, A of
+     8192^2/1e-3 and at the edges of its 4096-cell windows (k = 1, 3,
+     4095, 4097, 9001, m*k not a multiple of the window, empty rows and
+     stored zeros); `extract_roll` also at the edges of its one-pass design
      (rows wider than a tile, n = 1, 3, 15, 17, m = 1, all-false and
      all-true masks, a mask off 16-byte alignment) at five caps each, and
      bitwise on rerun;
@@ -22,8 +25,9 @@ for each:
      every kernel's launch count shown non-zero;
   3. CUDA-event timings (median of 25 runs after warm-up) of the full
      `spgemm`, the serving form `spgemm_fixed(cap=nnz)`, each layer of the
-     path, and each kernel against its plain version (`extract_roll` also
-     per call of 200 back to back and by its device time); the device's busy
+     path, and each kernel against its plain version (`extract_roll` and
+     `densify_onehot` also per call of 200 back to back and by their device
+     times); the device's busy
      time per `spgemm` from a torch.profiler trace, and its idle share;
   4. the four SpMV/SpMM kernels against their plain versions and scipy's
      float64 product, per row within 1e-6 of the row's absolute sum
@@ -32,7 +36,10 @@ for each:
      k = 64) and at the SpMV edges (rows spanning many chunks between empty
      leading and trailing rows, rows of several binned pieces, an all-empty
      matrix, m = 1, the 37x45 edge CSR), `spmv_onehot` at every chunk size
-     there, each bitwise on rerun; `segment_sum` bitwise against its plain
+     there, `spmm_routed` there and at a full row of 9000 entries at k = 1,
+     33, 45, 64, 128, on an X aligned to 16 bytes and one that is not, over
+     both kinds of plan at the default cut and at cut 8 with chunks of 16,
+     each bitwise on rerun; `segment_sum` bitwise against its plain
      version on the CPU at the power-law matrix's rows;
   5. the SpMV/SpMM entry points (`spmv` per call and with each tagged plan,
      `spmv(transa=True)`, `spmm` per call and with the routed plan,
@@ -46,7 +53,11 @@ for each:
      device busy time from a profiler trace (`spmv_routed`'s by kernel
      name too), each cell's bound,
      `spmv_onehot` at chunk sizes 1024-4096, `spmv` by plan tag and end to
-     end, plan builds on the host clock, Gnnz/s and G MAC/s, the device's
+     end, plan builds on the host clock, Gnnz/s and G MAC/s; `spmm_routed`
+     at both SpMM cells per call, per call of 200 back to back and by its
+     device time over both kinds of plan, beside torch's CSR @ dense, with
+     each cell's bytes-once bound and the bytes its gathers of X move; the
+     device's
      busy time and idle share; `diagonal()`, `sum(axis=1)` and
      `segment_sum` beside its plain version and `torch.segment_reduce`;
   7. fixed-structure serving, `spgemm_plan(A, B)`, at SpGEMM 1024^2/0.1,
@@ -334,21 +345,26 @@ def phase1(dev, cells):
     kernel."""
     err = {"densify_onehot": 0.0, "extract_roll": 0.0}
     notes = []
-    mats = [cells[0][1], cells[0][2], edge_csr(dev)]
+    mats = [cells[0][1], cells[0][2], cells[2][1], edge_csr(dev),
+            *densify_edges(dev)]
     for mat in mats:
         for with_pattern in (True, False):
             args = (mat.indptr, mat.indices, mat.data, *mat.shape)
             got = densify_onehot(*args, with_pattern=with_pattern)
+            again = densify_onehot(*args, with_pattern=with_pattern)
             want = densify_onehot_plain(*args, with_pattern=with_pattern)
-            if not (same_bits(got[0], want[0]) and same_bits(got[1], want[1])):
-                raise AssertionError(f"densify kernel != plain at "
+            if not all(same_bits(x, y) and same_bits(z, y)
+                       for x, y, z in zip(got, want, again)):
+                raise AssertionError(f"densify kernel != plain (or rerun) at "
                                      f"{mat.shape} nnz={mat.nnz}")
             err["densify_onehot"] = max(err["densify_onehot"],
                                         max_abs(got[0], want[0]))
-    edge = mats[2]
+    edge = mats[3]
     if edge.toarray().cpu().count_nonzero() >= edge.nnz:
         raise AssertionError("edge case lost its explicit zero")
-    notes.append(f"densify bitwise at {len(mats)} operands x 2 modes")
+    notes.append(f"densify bitwise and on rerun at {len(mats)} operands "
+                 f"({', '.join('x'.join(map(str, x.shape)) for x in mats)}) "
+                 "x 2 modes")
     for name, a, b in cells:
         c, mask, nnz = sg._alg1_dense_compute(a, b, 1.0)
         nnz = int(nnz)
@@ -381,6 +397,23 @@ def phase1(dev, cells):
     torch.cuda.synchronize()
     print("phase 1: " + "; ".join(notes), flush=True)
     return err
+
+
+def densify_edges(dev):
+    """CSRs at the edges of the densify windows: rows wider than a
+    4096-cell window (k = 4097, 9001), k = 4095, 1 and 3, m*k not a
+    multiple of the window, explicit stored zeros and empty rows."""
+    rng = np.random.default_rng(41)
+    out = []
+    for m, k, p in ((5, 4097, 0.05), (1, 4095, 0.3), (2, 9001, 0.1),
+                    (700, 3, 0.4), (4096, 1, 0.5)):
+        dense = (rng.random((m, k)) < p) * rng.standard_normal((m, k))
+        dense[m // 2] = 0.0  # an empty row
+        mat = sp.csr_matrix(dense.astype(np.float32))
+        mat.sort_indices()
+        mat.data[:2] = 0.0  # stored, so structural
+        out.append(pt.CSR.from_scipy(mat, device=dev))
+    return out
 
 
 def extract_edges(dev):
@@ -506,6 +539,12 @@ def phase3(cells, nnzs, smi):
             "spgemm_fixed_ms": median_ms(
                 lambda: pt.spgemm_fixed(a, b, cap=cap)),
             "densify_ms": median_ms(lambda: densify_onehot(*dens_args)),
+            "densify_loop_ms": loop_ms(lambda: densify_onehot(*dens_args)),
+            "densify_device_ms": kernel_ms(
+                lambda: densify_onehot(*dens_args), "densify_rows"),
+            "densify_value_only_device_ms": kernel_ms(
+                lambda: densify_onehot(*dens_args, with_pattern=False),
+                "densify_rows"),
             "densify_plain_ms": median_ms(
                 lambda: densify_onehot_plain(*dens_args)),
             "value_gemm_ms": median_ms(value_gemm),
@@ -686,6 +725,59 @@ def _kernel_runs(name, a, x, ch=ko.CH_DEFAULT):
     return run(), run(), plain()
 
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary (a column slice made contiguous at an odd offset)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def spmm_edge_checks(dev, edges, err) -> dict:
+    """`spmm_routed` at the SpMV edges and a full row of 9000 entries, at
+    k = 1, 33, 45, 64 and 128, on an X 16-byte aligned and one that is not
+    (the kernel's one-column lanes), over both kinds of plan at the default
+    cut and at cut 8 with chunks of 16 (rows closed by up to 563 chunks):
+    against its plain version and scipy's float64 product, bitwise on
+    rerun, every counter reset; returns the worst ratio per edge."""
+    rng = np.random.default_rng(13)
+    full = pt.CSR.from_parts(
+        np.array([0, 0, 9000, 9000], np.int32), np.arange(9000,
+                                                          dtype=np.int32),
+        rng.standard_normal(9000).astype(np.float32), (3, 9000),
+        canonical=True, device=dev)
+    worst = {}
+    for name, a, _ in edges + [("edge full row 3x9000", full, None)]:
+        m, n = a.shape
+        args = (a.indptr, a.indices, a.data)
+        for k in (1, 33, 45, 64, 128):
+            x = torch.from_numpy(rng.standard_normal((n, k)).astype(
+                np.float32)).to(dev)
+            check = RowCheck(a, x)
+            for xx in (x, misaligned(x)):
+                for kw in ({}, {"cut": 8, "ch": 16}):
+                    for sell in (True, False):
+                        p = kr.spmv_routed_plan(*args, m, n, sell=sell, **kw)
+                        got = kr.spmm_routed(xx, p)
+                        again = kr.spmm_routed(xx, p)
+                        plain = kr.spmm_routed_plain(xx, p)
+                        torch.cuda.synchronize()
+                        what = (f"spmm_routed @ {name} k={k} "
+                                f"{xx.data_ptr() % 16} {kw} sell={sell}")
+                        if not same_bits(got, again) or p.counters.any():
+                            raise AssertionError(f"{what}: rerun not bitwise "
+                                                 "or a counter left set")
+                        r = max(check.ratio(got, what),
+                                check.ratio(plain, f"{what} (plain)"))
+                        worst[f"spmm_routed @ {name} (k, X, plans)"] = max(
+                            worst.get(f"spmm_routed @ {name} (k, X, plans)",
+                                      0.0), r)
+                        err["spmm_routed"] = max(err["spmm_routed"],
+                                                 max_abs(got, plain))
+    return worst
+
+
 def axis1_segments(a):
     """The in-order segment sum behind `a.sum(axis=1)` of a CSR: its data
     and its rows as (starts, lengths)."""
@@ -729,6 +821,7 @@ def phase4(dev, spmv_cells, spmm_cells):
         err[base] = max(err[base], max_abs(got, plain))
         ratios[what.replace(" at ", " @ ")] = [r_k, r_p]
         del got, again, plain
+    ratios.update(spmm_edge_checks(dev, edges, err))
     # the binned plan kernels: bitwise their plain version on the card
     for name, a, _ in spmv_cells + edges:
         m, n = a.shape
@@ -1029,6 +1122,18 @@ def phase6(spmv_cells, spmm_cells, smi):
             "spmm_tag_routed_ms": median_ms(
                 lambda: pt.spmm(a, X, plan=("routed", routed))),
             "torch_csr_mm_ms": median_ms(lambda: ta @ X),
+            "spmm_routed_loop_ms": loop_ms(lambda: kr.spmm_routed(X, routed)),
+            "spmm_routed_device_ms": kernel_ms(
+                lambda: kr.spmm_routed(X, routed), "spmm_routed"),
+            "spmm_routed_percall_plan_device_ms": kernel_ms(
+                lambda: kr.spmm_routed(X, percall), "spmm_routed"),
+            "torch_csr_mm_busy_ms": kernel_busy_ms(lambda: ta @ X),
+            # the CSR, X and Y once; what the gathers of X move
+            "bound_ms": bound(8 * a.nnz + 4 * (m + 1) + 4 * k * (n + m),
+                              2 * a.nnz * k)[0],
+            "gathered_bytes": 4 * k * a.nnz,
+            "long_rows": routed.long_rows.numel(),
+            "chunks": routed.chunk_start.numel(),
         }
         for key in ("spmm_routed", "spmm_call", "spmm_tag_routed"):
             row[f"{key}_gmac_s"] = a.nnz * k / row[f"{key}_ms"] / 1e6

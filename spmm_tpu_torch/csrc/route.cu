@@ -36,10 +36,11 @@
 // one CTA each; the CTA zeroes its window in shared memory, sets the cells
 // of the entries the plan's window table gives it, and after a barrier
 // writes the window out with 16-byte stores, zeros included, the values and
-// the pattern in the same launch.  Windows start at multiples of kWin
-// cells, so every store is aligned whatever k is (only a workspace `val`
-// given off 16-byte alignment, and the last window's ragged tail, take
-// narrow stores).  No fill runs before it.
+// the pattern in the same launch (the window writer of window.cuh, shared
+// with densify.cu).  Windows start at multiples of kWindow cells, so every
+// store is aligned whatever k is (only a workspace `val` given off 16-byte
+// alignment, and the last window's ragged tail, take narrow stores).  No
+// fill runs before it.
 //
 // compress_routed reads 4 bytes of position (8 past 2^31 cells), writes 4
 // of output, and gathers c: 4 bytes an entry where the output structure is
@@ -56,15 +57,14 @@
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
+#include "window.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 4;                   // entries a thread, per tile
 constexpr int kTile = kThreads * kVec;    // entries a block, per tile
-constexpr unsigned short kBf16One = 0x3F80;  // bf16 bit pattern of 1.0
-
-constexpr int kWin = 4096;                // cells a CTA of expand_routed
+constexpr int kWin = spmm::kWindow;       // cells a CTA of expand_routed
 
 // One CTA per window [e0, e0 + n) of the flat (m, k) output: the entries
 // pos[win[w]:win[w + 1]] fall inside it (the plan's window table).
@@ -75,48 +75,26 @@ __global__ void __launch_bounds__(kThreads)
                   const long long* __restrict__ win,
                   float* __restrict__ val, unsigned short* __restrict__ pat,
                   long long cells) {
-  __shared__ float4 win_val4[kWin / 4];  // 16 KB
-  __shared__ uint4 win_pat4[kWin / 8];   // 8 KB
+  __shared__ uint4 win_val4[kWin / 4];  // 16 KB
+  __shared__ uint4 win_pat4[kWin / 8];  // 8 KB
   float* win_val = reinterpret_cast<float*>(win_val4);
   unsigned short* win_pat = reinterpret_cast<unsigned short*>(win_pat4);
   const long long e0 = static_cast<long long>(blockIdx.x) * kWin;
   const int n = static_cast<int>(min(static_cast<long long>(kWin),
                                      cells - e0));
   const int t = threadIdx.x;
-  for (int i = t; i < kWin / 4; i += kThreads) {
-    win_val4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  if (pat != nullptr) {
-    for (int i = t; i < kWin / 8; i += kThreads) {
-      win_pat4[i] = make_uint4(0, 0, 0, 0);
-    }
-  }
+  spmm::zero_window(win_val4, kWin / 4, t, kThreads);
+  if (pat != nullptr) spmm::zero_window(win_pat4, kWin / 8, t, kThreads);
   const long long end = win[blockIdx.x + 1];
   __syncthreads();
   for (long long i = win[blockIdx.x] + t; i < end; i += kThreads) {
     const int w = static_cast<int>(pos[i] - e0);
     win_val[w] = vals[src != nullptr ? src[i] : i];
-    if (pat != nullptr) win_pat[w] = kBf16One;
+    if (pat != nullptr) win_pat[w] = spmm::kBf16One;
   }
   __syncthreads();
-  float* out = val + e0;
-  int done = 0;  // cells written with 16-byte stores
-  if ((reinterpret_cast<unsigned long long>(out) & 15) == 0) {
-    float4* out4 = reinterpret_cast<float4*>(out);
-    for (int i = t; i < n / 4; i += kThreads) out4[i] = win_val4[i];
-    done = n / 4 * 4;
-  }
-  for (int i = done + t; i < n; i += kThreads) out[i] = win_val[i];
-  if (pat != nullptr) {
-    unsigned short* outp = pat + e0;
-    done = 0;
-    if ((reinterpret_cast<unsigned long long>(outp) & 15) == 0) {
-      uint4* outp4 = reinterpret_cast<uint4*>(outp);
-      for (int i = t; i < n / 8; i += kThreads) outp4[i] = win_pat4[i];
-      done = n / 8 * 8;
-    }
-    for (int i = done + t; i < n; i += kThreads) outp[i] = win_pat[i];
-  }
+  spmm::store_window(val + e0, win_val, n, t, kThreads);
+  if (pat != nullptr) spmm::store_window(pat + e0, win_pat, n, t, kThreads);
 }
 
 // Thread t of a block takes entries t, t + 256, t + 512 and t + 768 of

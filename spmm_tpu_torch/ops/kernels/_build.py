@@ -66,9 +66,10 @@ _SIGNATURES = {
     "spmm_spmv_routed": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                          _I, _P, _P, _P, _P, _P, _P, _P),
     # indptr, indices, data, order, nrows, cut, chunk_start, chunk_end,
-    # nchunks, long_rows, long_chunk_ptr, nlong, x, k, partial, y, stream
-    "spmm_spmm_routed": (_P, _P, _P, _P, _I, _I, _P, _P, _I,
-                         _P, _P, _I, _P, _I, _P, _P, _P),
+    # chunk_row, chunk_order, nchunks, long_rows, long_chunk_ptr, counters,
+    # x, k, partial, y, stream
+    "spmm_spmm_routed": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                         _P, _P, _P, _P, _I, _P, _P, _P),
     # indptr, m, ntiles, tile_stats, rows, class_off, piece_end, piece_row,
     # counters, stream
     "spmm_spmv_binned_plan": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),

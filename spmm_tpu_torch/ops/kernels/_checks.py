@@ -7,9 +7,30 @@ built on one device and used with x on another).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
+
+
+def csr_for_plan(indptr, indices, data, device):
+    """A plan's CSR (indptr, indices, data) as tensors: tensors stay where
+    they lie (moved to `device` where it is given); host arrays, as JAX's
+    plan functions take them, go to the card unless `device="cpu"` is given,
+    and raise where there is no card (no quiet fallback to the CPU)."""
+    from spmm_tpu_torch.sparse.base import checked_device
+
+    arrays = (indptr, indices, data)
+    if all(isinstance(t, torch.Tensor) for t in arrays):
+        if device is None:
+            return arrays
+        dev = checked_device(device)
+        return tuple(t.to(dev) for t in arrays)
+    dev = checked_device(device or "cuda")
+    return tuple(torch.as_tensor(np.ascontiguousarray(t, dtype), device=dev)
+                 if not isinstance(t, torch.Tensor) else t.to(dev)
+                 for t, dtype in zip(arrays, (np.int32, np.int32,
+                                              np.float32)))
 
 
 def check_csr(indptr, indices, data, m: int, what: str) -> None:

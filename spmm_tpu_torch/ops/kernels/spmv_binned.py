@@ -34,7 +34,8 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
-from spmm_tpu_torch.ops.kernels._checks import check_csr, check_dense
+from spmm_tpu_torch.ops.kernels._checks import (check_csr, check_dense,
+                                                csr_for_plan)
 
 # a row of length L goes to the first class whose bound is >= L
 CLASS_BOUNDS = (4, 64, 2048)
@@ -108,11 +109,14 @@ def _plan_kernels(indptr: torch.Tensor, m: int, max_pieces: int):
     return parts[:-1]
 
 
-def spmv_binned_plan(indptr: torch.Tensor, indices: torch.Tensor,
-                     data: torch.Tensor, m: int, n: int) -> SpmvBinnedPlan:
-    """Row-length classes and hub pieces of a canonical CSR, on its device
-    with no host sync.  Any CSR gets a plan, an empty one included: its
-    rows are written as 0."""
+def spmv_binned_plan(indptr, indices, data, m: int, n: int,
+                     device=None) -> SpmvBinnedPlan:
+    """Row-length classes and hub pieces of a canonical CSR, with no host
+    sync.  A tensor CSR's plan lies on its device (or on `device`, where it
+    is given); a host CSR's (numpy arrays, as JAX's plan function takes)
+    goes to the card unless `device="cpu"` is given.  Any CSR gets a plan, an empty
+    one included: its rows are written as 0."""
+    indptr, indices, data = csr_for_plan(indptr, indices, data, device)
     check_csr(indptr, indices, data, m, "spmv_binned_plan")
     dev = indptr.device
     nnz = data.numel()

@@ -29,11 +29,13 @@ The port's plan, built on the matrix's device (a few host syncs for sizes):
 the row) pick which chunk's warp adds the row's `partial`s, so a call
 allocates and zero-fills nothing but y.  A plan serves one launch at a
 time: it is not shared by launches on two streams at once.
-`csrc/spmm_routed.cu` runs the SpMM with the plan's row order and the CSR
-arrays (a warp per row and 32 columns of X, and the same chunks for the
-long rows).  `slack` is slots / nnz, the statistic the JAX plan reports.
-A plan made with `sell=False` carries only the long-row chunks: it serves
-`spmm_routed` (a per-call `spmm`), not `spmv_routed`.
+`csrc/spmm_routed.cu` runs the SpMM in one launch too, with the plan's
+row order and the CSR arrays: a group of lanes a row (half a warp at
+k = 64), and the same chunks for the long rows, taken in `chunk_order`
+(by first column) and closed through the same counters.  `slack` is
+slots / nnz, the statistic the JAX plan reports.  A plan made with
+`sell=False` carries only the long-row chunks and their counters: it
+serves `spmm_routed` (a per-call `spmm`), not `spmv_routed`.
 
 Not copied from the TPU plan: its limit `n <= C*16384/R` (the x table's
 reach), its rejection of pathological class skew, and its None for an
@@ -49,7 +51,8 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
-from spmm_tpu_torch.ops.kernels._checks import check_csr, check_dense
+from spmm_tpu_torch.ops.kernels._checks import (check_csr, check_dense,
+                                                csr_for_plan)
 
 CUT = 256        # rows longer than this leave the slices
 CH = 512         # entries per chunk of a long row
@@ -74,6 +77,10 @@ class SpmvRoutedPlan(NamedTuple):
     chunk_start: torch.Tensor     # (nchunks,) i32 — entry range of a chunk
     chunk_end: torch.Tensor       # (nchunks,) i32
     chunk_row: torch.Tensor       # (nchunks,) i32 — its long row's index
+    # (nchunks,) i32 — the chunks by (first column, chunk id): the order
+    # in which the SpMM kernel takes them
+    chunk_order: torch.Tensor
+    counters: torch.Tensor        # (nlong,) i32 — zeros
     slots: int                    # slice slots + long-row entries
     order: Optional[torch.Tensor] = None       # (ns,) i32 — slice rows
     slice_rows: Optional[torch.Tensor] = None  # (nslices*32,) i32, -1 pads
@@ -82,7 +89,6 @@ class SpmvRoutedPlan(NamedTuple):
     sell_val: Optional[torch.Tensor] = None    # (slice slots,) f32
     # slices split across 8, 4, 2 and 1 warps, stored in that order
     classes: Tuple[int, int, int, int] = (0, 0, 0, 0)
-    counters: Optional[torch.Tensor] = None    # (nlong,) i32 — zeros
     partial: Optional[torch.Tensor] = None     # (nchunks,) f32 — scratch
 
     @property
@@ -134,14 +140,17 @@ def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
             owner.to(INDEX_DTYPE))
 
 
-def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
-                     data: torch.Tensor, m: int, n: int, *, cut: int = CUT,
-                     ch: int = CH, sell: bool = True) -> SpmvRoutedPlan:
-    """The serving plan of a canonical f32 CSR, on its device (see the
-    module docstring).  `sell=False` skips the slices (an SpMM-only plan,
-    cheap enough to make per call).  `cut` and `ch` set the long-row
-    threshold and chunk length (tests lower them to reach the long-row path
-    at small sizes)."""
+def spmv_routed_plan(indptr, indices, data, m: int, n: int, *,
+                     cut: int = CUT, ch: int = CH, sell: bool = True,
+                     device=None) -> SpmvRoutedPlan:
+    """The serving plan of a canonical f32 CSR (see the module docstring).
+    A tensor CSR's plan lies on its device (or on `device`, where it is
+    given); a host CSR's (numpy arrays, as JAX's plan function takes) goes
+    to the card unless `device="cpu"` is given.  `sell=False` skips the slices (an
+    SpMM-only plan, cheap enough to make per call).  `cut` and `ch` set the
+    long-row threshold and chunk length (tests lower them to reach the
+    long-row path at small sizes)."""
+    indptr, indices, data = csr_for_plan(indptr, indices, data, device)
     check_csr(indptr, indices, data, m, "spmv_routed_plan")
     if cut < 1 or ch < 1:
         raise ValueError(f"spmv_routed_plan: cut and ch must be positive, "
@@ -151,8 +160,14 @@ def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
     long_rows, long_chunk_ptr, chunk_start, chunk_end, chunk_row = \
         _long_row_chunks(indptr, lens, cut, ch)
     long_nnz = int(lens[long_rows.long()].sum())
+    # stable: chunks with the same first column keep their id order
+    chunk_order = torch.sort(indices[chunk_start.long()],
+                             stable=True).indices.to(INDEX_DTYPE)
     plan = SpmvRoutedPlan(m, n, cut, ch, indptr, indices, data, long_rows,
                           long_chunk_ptr, chunk_start, chunk_end, chunk_row,
+                          chunk_order,
+                          torch.zeros(long_rows.numel(), dtype=INDEX_DTYPE,
+                                      device=dev),
                           slots=long_nnz)
     if not sell:
         return plan
@@ -201,8 +216,6 @@ def spmv_routed_plan(indptr: torch.Tensor, indices: torch.Tensor,
         slots=nslots + long_nnz, order=order.to(INDEX_DTYPE),
         slice_rows=slice_rows.to(INDEX_DTYPE), slice_ptr=slice_ptr,
         sell_col=sell_col, sell_val=sell_val, classes=tuple(classes),
-        counters=torch.zeros(long_rows.numel(), dtype=INDEX_DTYPE,
-                             device=dev),
         partial=torch.empty(chunk_row.numel(), dtype=torch.float32,
                             device=dev))
 
@@ -284,31 +297,111 @@ def spmm_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     return prim.segment_sum_rows(prod, plan.indptr)
 
 
+def spmm_groups(k: int, vec4: bool) -> Tuple[int, int]:
+    """(G, VEC) of `csrc/spmm_routed.cu` for k columns: VEC = 4 columns a
+    lane where `vec4` (k % 4 == 0 and X, Y, the partials 16-byte aligned),
+    else 1; G the fewest of 8, 16 and 32 lanes that reach k, else 32 (and
+    k split into column blocks of G * VEC)."""
+    vec = 4 if vec4 else 1
+    lanes = -(-k // vec)
+    return next((g for g in (8, 16) if lanes <= g), 32), vec
+
+
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf on float32 tensors: the exact product and sum in float64,
+    rounded once (twice, through float64, in a rare tie: an emulation)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def spmm_routed_schedule(x: torch.Tensor, plan: SpmvRoutedPlan, group: int,
+                         vec: int = 1, seed: int = 0) -> torch.Tensor:
+    """CPU emulation of `csrc/spmm_routed.cu`'s work split, for tests: the
+    items (a chunk of a long row in `chunk_order`, then a row up to `cut`,
+    each with a column block of group * vec columns) finish in a random
+    order drawn from `seed`; a chunk stores its partial and counts its row,
+    and the item whose count completes the row adds the row's partials in
+    chunk order from 0.0 and resets the counter.  Sums are fmaf chains in
+    entry order.  Checks that every cell is written once and every counter
+    is left at zero."""
+    import numpy as np
+
+    k = x.shape[1]
+    reach = group * vec
+    ncb = -(-k // reach)
+    nchunks = plan.chunk_order.numel()
+    rows = (plan.order.tolist() if plan.order is not None
+            else list(range(plan.m)))
+    items = [("chunk", c, b) for c in plan.chunk_order.tolist()
+             for b in range(ncb)]
+    items += [("row", r, b) for r in rows for b in range(ncb)]
+    ip = plan.indptr.tolist()
+    cptr = plan.long_chunk_ptr.tolist()
+    y = torch.full((plan.m, k), float("nan"))
+    written = torch.zeros((plan.m, k), dtype=torch.int32)
+    partial = torch.full((max(nchunks, 1), k), float("nan"))
+    counters = plan.counters.clone()
+
+    def dot(s, e, cols):
+        acc = torch.zeros(cols.stop - cols.start)
+        for t in range(s, e):
+            acc = _fmaf(plan.data[t], x[int(plan.indices[t]), cols], acc)
+        return acc
+
+    for i in np.random.default_rng(seed).permutation(len(items)):
+        kind, j, b = items[i]
+        cols = slice(b * reach, min((b + 1) * reach, k))
+        if kind == "row":
+            if ip[j + 1] - ip[j] <= plan.cut:
+                y[j, cols] = dot(ip[j], ip[j + 1], cols)
+                written[j, cols] += 1
+            continue
+        partial[j, cols] = dot(int(plan.chunk_start[j]),
+                               int(plan.chunk_end[j]), cols)
+        r = int(plan.chunk_row[j])
+        counters[r] += 1
+        if counters[r] == (cptr[r + 1] - cptr[r]) * ncb:
+            acc = torch.zeros(k)
+            for p in range(cptr[r], cptr[r + 1]):
+                acc = acc + partial[p]
+            row = int(plan.long_rows[r])
+            y[row] = acc
+            written[row] += 1
+            counters[r] = 0
+    assert bool((written == 1).all()), "a cell written other than once"
+    assert not counters.any(), "a counter left set"
+    return y
+
+
 def spmm_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     """Y = A @ X, (m, k) f32 row-major, for a contiguous row-major X (n, k)
     and the CSR captured in `plan` (either kind of plan)."""
-    check_dense(x, 2, plan.n, plan.data.device, "spmm_routed")
-    if x.device.type == "cpu":
+    # one expression on every call (the plan was checked when it was
+    # built); the worded checks only where it fails
+    data = plan.data
+    if not (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and x.dim() == 2 and x.shape[0] == plan.n
+            and x.get_device() == data.get_device() and x.is_contiguous()):
+        check_dense(x, 2, plan.n, data.device, "spmm_routed")
+        raise ValueError("spmm_routed: x does not fit the plan")
+    if not x.is_cuda:
         return spmm_routed_plain(x, plan)
     k = x.shape[1]
-    y = torch.empty((plan.m, k), dtype=torch.float32, device=x.device)
+    y = x.new_empty((plan.m, k))
     if plan.m == 0 or k == 0:
         return y  # a zero-size grid is a launch error
     nchunks = plan.chunk_start.numel()
-    partial = torch.empty((max(nchunks, 1), k), dtype=torch.float32,
-                          device=x.device)
+    partial = x.new_empty((max(nchunks, 1), k))  # scratch of this call
     order = plan.order
-    nrows = plan.m if order is None else order.numel()
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.spmm_spmm_routed(
-            plan.indptr.data_ptr(), plan.indices.data_ptr(),
-            plan.data.data_ptr(),
-            None if order is None else order.data_ptr(), nrows, plan.cut,
-            plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(), nchunks,
-            plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
-            plan.long_rows.numel(), x.data_ptr(), k, partial.data_ptr(),
-            y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    err = _build.launch(
+        x.get_device(), "spmm_spmm_routed", plan.indptr.data_ptr(),
+        plan.indices.data_ptr(), data.data_ptr(),
+        None if order is None else order.data_ptr(),
+        plan.m if order is None else order.numel(), plan.cut,
+        plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(),
+        plan.chunk_row.data_ptr(), plan.chunk_order.data_ptr(), nchunks,
+        plan.long_rows.data_ptr(), plan.long_chunk_ptr.data_ptr(),
+        plan.counters.data_ptr(), x.data_ptr(), k, partial.data_ptr(),
+        y.data_ptr())
     _build.check(err, "spmm_routed")
     _build.LAUNCHES["spmm_routed"] += 1
     return y

@@ -3,8 +3,9 @@
 Port of `spmm_tpu/ops/spmm.py`.  Paths:
 
   * `via="csr"` (the default): `spmm_routed`'s kernel
-    (`csrc/spmm_routed.cu`, a warp per row and 32 columns of B) over a plan
-    made for this call that holds only the chunks of the long rows;
+    (`csrc/spmm_routed.cu`, a group of lanes per row and up to 128 columns
+    of B) over a plan made for this call that holds only the chunks of the
+    long rows;
   * `plan=("routed", p)` from `spmv_plan(a)`: the same kernel over the
     serving plan's row order (ignored with `transa`, as in JAX);
   * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`

@@ -48,6 +48,12 @@ def _on(dev, *arrays):
     (33, 45, 0.3, {"zeros": 3, "empty_rows": (0, 7, 32)}),
     (1, 5000, 0.2, {}),       # one long row: lanes stride many entries
     (3000, 7, 0.5, {}),       # many short rows, k not a multiple of 32
+    # rows across 4096-cell windows, m*k % 4096 != 0, k % 4 != 0
+    (5, 4097, 0.05, {"zeros": 2, "empty_rows": (3,)}),
+    (1, 4095, 0.3, {}),
+    (2, 9001, 0.1, {}),
+    (700, 3, 0.4, {"empty_rows": (0, 699)}),
+    (4096, 1, 0.5, {"zeros": 5}),
 ])
 @pytest.mark.parametrize("with_pattern", [True, False])
 def test_densify_kernel_bitwise_vs_plain(dev, m, k, density, kw,
@@ -475,6 +481,33 @@ def test_route_plans_of_host_arrays_go_to_the_card(dev):
                                      40).pos.device.type == "cpu"
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["routed", "binned"])
+def test_spmv_plans_of_host_arrays_go_to_the_card(dev, kind):
+    """spmv_routed_plan and spmv_binned_plan of host arrays, as JAX's plan
+    functions take them: on the card by default, on the CPU with
+    device="cpu", and the same SpMV either way."""
+    from spmm_tpu_torch.ops.kernels import spmv_binned as kb
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    m, n, *host = _edge_arrays("hub_pieces")
+    x = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+    if kind == "routed":
+        make, call = kr.spmv_routed_plan, kr.spmv_routed
+    else:
+        make, call = kb.spmv_binned_plan, kb.spmv_binned
+    on_card = make(*host, m, n)
+    on_cpu = make(*host, m, n, device="cpu")
+    assert on_card.indptr.device.type == on_card.counters.device.type == \
+        "cuda"
+    assert on_cpu.indptr.device.type == "cpu"
+    got = call(torch.from_numpy(x).to(dev), on_card)
+    torch.cuda.synchronize()
+    _assert_rowwise(got, (m, n, *host), torch.from_numpy(x))
+    _assert_rowwise(call(torch.from_numpy(x), on_cpu), (m, n, *host),
+                    torch.from_numpy(x))
+
+
 def _full_row_arrays(n: int):
     """3 x n: an empty row, a full row of n entries, an empty row."""
     rng = np.random.default_rng(n)
@@ -508,6 +541,86 @@ def test_spmv_routed_joins_many_chunks_on_card(dev, name):
     assert not p.counters.any()
     for y in (got, plain):
         _assert_rowwise(y, (m, n, *host), x)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary (a column slice made contiguous at an odd offset)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SPMV_EDGE) + ["row_of_563_chunks"])
+@pytest.mark.parametrize("k", [1, 33, 45, 64, 128])
+@pytest.mark.parametrize("layout", ["aligned", "misaligned"])
+def test_spmm_routed_kernel_vs_plain_on_card(dev, name, k, layout):
+    """spmm_routed over both kinds of plan, at cut 8 and chunks of 16
+    entries (long rows closed by up to 563 chunks) and at the default cut
+    and chunk: one launch a call, within 1e-6 (|A||X|)_ij of scipy's
+    float64 product as its plain version is, bitwise on rerun, every
+    counter reset by the group that closed its row.  A misaligned X takes
+    the kernel's one-column lanes."""
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    m, n, *host = (_full_row_arrays(9000) if name == "row_of_563_chunks"
+                   else _edge_arrays(name))
+    indptr, indices, data = _on(dev, *host)
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (n, k)).astype(np.float32)).to(dev)
+    if layout == "misaligned":
+        x = _misaligned(x)
+    for kw in (dict(cut=8, ch=16), {}):
+        for sell in (True, False):
+            p = kr.spmv_routed_plan(indptr, indices, data, m, n, sell=sell,
+                                    **kw)
+            before = _build.LAUNCHES["spmm_routed"]
+            got = kr.spmm_routed(x, p)
+            again = kr.spmm_routed(x, p)
+            plain = kr.spmm_routed_plain(x, p)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["spmm_routed"] == before + 2
+            assert got.shape == (m, k) and got.is_contiguous()
+            assert_bitwise(got, again)
+            assert not p.counters.any()
+            for y in (got, plain):
+                _assert_rowwise(y, (m, n, *host), x)
+
+
+@pytest.mark.gpu
+def test_densify_and_spmm_calls_are_one_launch_and_no_fill(dev):
+    """One kernel and no memset or fill kernel in a call's trace:
+    densify_onehot with and without the pattern; spmm_routed over a plan
+    with long rows (sell=True and sell=False) and over one without."""
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    indptr, indices, data = _on(dev, *csr_arrays(300, 1000, 0.05, seed=5))
+    m, n, *host = _edge_arrays("hub_pieces")
+    hub = _on(dev, *host)
+    x = torch.ones(n, 64, device=dev)
+    plans = [kr.spmv_routed_plan(*hub, m, n),
+             kr.spmv_routed_plan(*hub, m, n, sell=False),
+             kr.spmv_routed_plan(*hub, m, n, cut=n)]
+    assert plans[0].long_rows.numel() == plans[1].long_rows.numel() > 0
+    assert plans[2].long_rows.numel() == 0
+    calls = [("densify_onehot", lambda: densify_onehot(
+                  indptr, indices, data, 300, 1000)),
+             ("densify_onehot", lambda: densify_onehot(
+                  indptr, indices, data, 300, 1000, with_pattern=False))]
+    calls += [("spmm_routed", lambda p=p: kr.spmm_routed(x, p))
+              for p in plans]
+    for key, call in calls:
+        before = _build.LAUNCHES[key]
+        call()
+        assert _build.LAUNCHES[key] == before + 1
+        seen = _device_events(call)
+        if seen is None:
+            pytest.skip("the profiler's trace holds no device events here")
+        kernels, memsets = seen
+        assert memsets == 0 and len(kernels) == 1, (key, seen)
 
 
 @pytest.mark.gpu

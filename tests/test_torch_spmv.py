@@ -190,9 +190,10 @@ def test_routed_plan_layout(name):
 def test_routed_plan_join_state_and_slice_classes(name, cut, ch):
     """The state of the one-launch kernel: a counter per long row, all zero
     when the plan is built; one partial slot per chunk; each chunk's long
-    row.  The slices stored in class order (8, 4, 2, 1 warps, at most COLS
-    columns a warp), `classes` counting them.  A sell=False plan carries
-    the chunks alone."""
+    row; the chunks by (first column, chunk id) in `chunk_order`.  The
+    slices stored in class order (8, 4, 2, 1 warps, at most COLS columns a
+    warp), `classes` counting them.  A sell=False plan carries the chunks
+    and their counters alone."""
     from spmm_tpu_torch.ops.kernels import spmv_routed as kr
 
     indptr, indices, data, m, n = _arrays(name)
@@ -213,9 +214,73 @@ def test_routed_plan_join_state_and_slice_classes(name, cut, ch):
     # the fewest warps that give each at most COLS columns, 8 at the most
     assert ((width <= kr.COLS * warps) | (warps == 8)).all()
     assert ((width > kr.COLS * warps // 2) | (warps == 1)).all()
+    first = indices[p.chunk_start.numpy()].astype(np.int64)
+    assert_bitwise(p.chunk_order, np.lexsort((np.arange(first.size), first))
+                   .astype(np.int32))
     q = spmv_routed_plan(ti, tx, td, m, n, cut=cut, ch=ch, sell=False)
-    assert q.counters is None and q.partial is None and q.slice_ptr is None
-    assert_bitwise(q.chunk_row, p.chunk_row)
+    assert q.partial is None and q.slice_ptr is None
+    assert q.counters.dtype == torch.int32 and q.counters.numel() == nlong
+    assert not q.counters.any()
+    for name in ("chunk_row", "chunk_order"):
+        assert_bitwise(getattr(q, name), getattr(p, name))
+
+
+def _plan_tensors(plan):
+    """A plan's tensors, but its scratch (`partial`, never read before a
+    launch writes it)."""
+    return {k: v for k, v in plan._asdict().items()
+            if isinstance(v, torch.Tensor) and k != "partial"}
+
+
+@pytest.mark.parametrize("name", ["300x256", "empty_rows", "powerlaw"])
+@pytest.mark.parametrize("kind", ["routed", "binned"])
+def test_plan_of_host_arrays_on_cpu(kind, name, monkeypatch):
+    """The plan functions take host arrays as JAX's do (float64 values
+    converted to float32): with device="cpu" the plan is the tensor CSR's,
+    bitwise, and its SpMV and SpMM agree with the tensor plan's and with
+    JAX's; a host array's plan goes to the card by default, so without one
+    it raises rather than fall back to the CPU."""
+    indptr, indices, data, m, n = _arrays(name)
+    ti, tx, td = _t(indptr, indices, data)
+    x = _x(n, seed=m + 3)
+    xt = torch.from_numpy(x)
+    if kind == "routed":
+        kw = dict(cut=8, ch=16)
+        host = spmv_routed_plan(indptr, indices, data.astype(np.float64), m,
+                                n, device="cpu", **kw)
+        tens = spmv_routed_plan(ti, tx, td, m, n, **kw)
+        got, want = spmv_routed(xt, host), spmv_routed(xt, tens)
+        X = torch.from_numpy(_x(n, seed=m + 4, k=6))
+        assert_bitwise(spmm_routed(X, host), spmm_routed(X, tens))
+        jp = jax_routed.spmv_routed_plan(indptr, indices, data, m, n)
+        jax_y = (jax_routed.spmv_routed(jnp.asarray(x), jp, interpret=True)
+                 if jp is not None else None)
+        build = lambda: spmv_routed_plan(  # noqa: E731
+            indptr, indices, data, m, n)
+    else:
+        host = spmv_binned_plan(indptr, indices, data.astype(np.float64), m,
+                                n, device="cpu")
+        tens = spmv_binned_plan(ti, tx, td, m, n)
+        got, want = spmv_binned(xt, host), spmv_binned(xt, tens)
+        jp = jax_binned.spmv_binned_plan(indptr, indices, data, m, n)
+        jax_y = (jax_binned.spmv_binned(jnp.asarray(x), jp, interpret=True)
+                 if jp is not None else None)
+        build = lambda: spmv_binned_plan(  # noqa: E731
+            indptr, indices, data, m, n)
+    fields = _plan_tensors(tens)
+    assert fields.keys() == _plan_tensors(host).keys()
+    for key, t in _plan_tensors(host).items():
+        assert t.device.type == "cpu", key
+        assert_bitwise(t, fields[key])
+    assert_bitwise(got, want)
+    if jax_y is not None:
+        _assert_kernel_close(got, jax_y, indptr, indices, data, x)
+    # a tensor's plan moves where `device` says
+    assert _plan_tensors(spmv_routed_plan(ti, tx, td, m, n, device="cpu")
+                         )["indptr"].device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
 
 
 def _hub_arrays():

@@ -40,9 +40,19 @@ and with the pattern) at SpGEMM 1024^2/0.1 and 8192^2/1e-3 (seeds 2008 and
 + 4096 (and, where the checkout has `LARGE_MASK`, at each tile size),
 beside `torch.masked_select` plus `nonzero` for context only (no one call
 computes the whole function); in the same turns alg1's `densify_onehot` of
-A and, at the 1024^2 cells, the whole `spgemm(a, b, alg=1)`.  SpMM cell:
-`spmm_routed` at 10000^2/0.01 (seed 2015), X of 64 columns N(0,1) from
-seed 2024, beside torch's CSR @ dense.
+A and, at the 1024^2 cells, the whole `spgemm(a, b, alg=1)`.  SpMM cells:
+`spmm_routed` at 10000^2/0.01 (seed 2015) and at the power-law 2^20 matrix
+(`power_law_rows(2^20, 2^20, 16, alpha=1.5, seed=0)`), X of 64 columns
+N(0,1) from seed 2024, over the serving plan and over the per-call one
+(`sell=False`), beside torch's CSR @ dense, with each cell's bytes-once
+bound and the bytes its gathers of X move (`gathered_bytes`: 4 k an entry);
+a probe of the card's gather rate: the same kernel at 10000^2/0.01 with
+every column id taken modulo 256 (an X of 64 KB that stays in L1) beside
+the cell itself (a random X of 2.56 MB, served by L2), each as gathered
+bytes over device time; and probes that split the power-law call
+(`powerlaw_probes`): its rows up to the cut alone, its longer rows alone,
+one full row of 2^20 entries, and the chunks in row order or with the rows
+of 1024 chunks or more first.
 
 Per call: `call_ms`, the median CUDA-event time around one call (the host's
 wrapper included), taken in turns within the process (library, kernels,
@@ -59,13 +69,22 @@ pattern) and 12 an entry; for the extraction the mask's byte a cell, 4 an
 indptr entry and 12 a kept cell; for SpMM the CSR, X and the output once;
 for BSR SpMM the larger of its bytes and its 3 * 2 *
 nblocks*R*C*N TF32 operations at 494.7 TFLOP/s.  Each turn prints one JSON line with the card's
-name and power limit.  Needs a CUDA device; imports neither jax nor
-spmm_tpu.
+name and power limit.
+
+Every turn also prints, under `bits`, a SHA-256 of each output the groups
+`expand`, `pattern`, `extract` and `spmm` produce (the serving densify and
+the pattern at their cells, alg1's `densify_onehot` at its cells, and
+`spmm_routed` at both SpMM cells and at edges: k = 1, 33, 45, 64, 128, an X
+off 16-byte alignment, rows closed by up to 563 chunks, empty and one-row
+matrices).  With `--against`, a last line says for each output whether its
+bits are the same in every turn of both checkouts.  Needs a CUDA device;
+imports neither jax nor spmm_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -150,6 +169,14 @@ def in_turns(torch, calls: dict, library, detail=()) -> dict:
     return row
 
 
+def digest(torch, t) -> str:
+    """SHA-256 of a tensor's bytes (bfloat16 through its int16 view)."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:32]
+
+
 def spmv_cells(torch, pt, power_law_rows, dev):
     import numpy as np
 
@@ -194,7 +221,7 @@ def measure(repo: str, groups) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    out = {"repo": os.path.abspath(pt.__file__), "card": smi}
+    out = {"repo": os.path.abspath(pt.__file__), "card": smi, "bits": {}}
     if "spmv" in groups:
         spmv_turns(torch, pt, power_law_rows, kb, ko, kr, dev, out)
     if "serving" in groups:
@@ -210,7 +237,7 @@ def measure(repo: str, groups) -> dict:
     if "extract" in groups:
         extract_turns(torch, pt, dev, out)
     if "spmm" in groups:
-        spmm_turns(torch, np, pt, kr, dev, out)
+        spmm_turns(torch, np, pt, power_law_rows, kr, dev, out)
     return out
 
 
@@ -287,6 +314,8 @@ def pattern_turns(torch, pt, dev, out):
         row.update(in_turns(torch, calls, "to_dense",
                             ("densify_onehot_pattern",)))
         out[f"pattern {name}"] = row
+        out["bits"][f"pattern {name}"] = digest(
+            torch, calls["densify_onehot_pattern"]())
         del b, ones, tb
 
 
@@ -377,6 +406,10 @@ def expand_turns(torch, pt, route, dev, out):
         row.update(in_turns(torch, calls, "to_dense",
                             ("expand_routed", "expand_routed_pattern")))
         out[f"expand {name}"] = row
+        val, pat = calls["expand_routed_pattern"]()
+        for what, t in (("values", val), ("pattern", pat),
+                        ("value only", calls["expand_routed"]())):
+            out["bits"][f"expand {name} {what}"] = digest(torch, t)
         del a, plan, ta
 
 
@@ -423,26 +456,157 @@ def extract_turns(torch, pt, dev, out):
         row.update(in_turns(torch, calls, "masked_select_nonzero",
                             ("extract_roll", "densify_onehot")))
         out[f"extract {name}"] = row
+        val, pat = calls["densify_onehot"]()
+        value_only, _ = densify_onehot(a.indptr, a.indices, a.data, nn, nn,
+                                       with_pattern=False)
+        for what, t in (("values", val), ("pattern", pat),
+                        ("value only", value_only)):
+            out["bits"][f"densify_onehot {name} {what}"] = digest(torch, t)
         del a, b, c, mask, calls
 
 
-def spmm_turns(torch, np, pt, kr, dev, out):
-    rng = np.random.default_rng(2024)
-    a = pt.random(10000, 10000, 0.01, format="csr", seed=2015, device=dev)
+def spmm_edges(np, dev, torch):
+    """(name, indptr, indices, data, m, n, plan keywords) of the SpMM edges:
+    an empty row, a full row of 9000 entries in 563 chunks of 16 and an
+    empty row; rows spanning many chunks between empty ones; one row of
+    4999 entries; an all-empty matrix; a 300x200 matrix at 0.05."""
+    rng = np.random.default_rng(11)
+
+    def csr(lens, n):
+        lens = np.asarray(lens, np.int64)
+        indices = np.concatenate(
+            [np.sort(rng.choice(n, int(k), replace=False)) for k in lens]
+            + [np.zeros(0, np.int64)])
+        indptr = np.concatenate([[0], np.cumsum(lens)])
+        data = rng.standard_normal(indices.size).astype(np.float32)
+        data[:3] = 0.0
+        return [torch.from_numpy(a).to(dev) for a in (
+            indptr.astype(np.int32), indices.astype(np.int32), data)]
+
+    span = np.zeros(60, np.int64)
+    span[[5, 6, 30, 40]] = [2900, 1, 2000, 256]
+    span[10:25] = rng.integers(0, 40, 15)
+    uniform = rng.binomial(200, 0.05, 300)
+    return [("full row 3x9000", csr([0, 9000, 0], 9000), 3, 9000),
+            ("span chunks 60x3000", csr(span, 3000), 60, 3000),
+            ("m=1 1x5000", csr([4999], 5000), 1, 5000),
+            ("all empty 50x40", csr(np.zeros(50), 40), 50, 40),
+            ("uniform 300x200", csr(uniform, 200), 300, 200)]
+
+
+def misaligned(torch, x):
+    """A contiguous copy of x starting 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def powerlaw_probes(torch, pt, kr, a, x, routed) -> dict:
+    """Calls that split the power-law SpMM's time: the same kernel over the
+    rows up to the plan's cut alone and over the longer rows alone (each
+    with the other rows emptied), over one full row of 2^20 entries (2048
+    chunks closed by one group), and, where the plan orders its chunks, with
+    the chunks in row order instead."""
     m, n = a.shape
-    x = torch.from_numpy(rng.standard_normal((n, 64)).astype(
-        np.float32)).to(dev)
-    routed = kr.spmv_routed_plan(a.indptr, a.indices, a.data, m, n)
-    ta = torch_sparse(torch, "csr", a.indptr, a.indices, a.data,
-                      shape=a.shape)
-    calls = {"torch_csr_mm": lambda: ta @ x,
-             "spmm_routed": lambda: kr.spmm_routed(x, routed)}
-    nbytes = 8 * a.nnz + 4 * (m + 1) + 4 * 64 * (n + m)
-    row = {"nnz": a.nnz, "k": 64,
-           "bound_ms": max(nbytes / HBM_BYTES_S,
-                           2 * a.nnz * 64 / 67e12) * 1e3}
-    row.update(in_turns(torch, calls, "torch_csr_mm", ("spmm_routed",)))
-    out["spmm 10000^2/0.01 k=64"] = row
+    lens = a.indptr[1:] - a.indptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(m, device=a.data.device),
+                                   lens.long(), output_size=a.nnz)
+    calls = {}
+    for key, keep in (("short_rows_only", lens <= routed.cut),
+                      ("long_rows_only", lens > routed.cut)):
+        part = pt.CSR.from_parts(
+            torch.cat([lens.new_zeros(1),
+                       torch.cumsum(lens * keep, 0, dtype=torch.int32)]),
+            a.indices[keep[rows]], a.data[keep[rows]], (m, n),
+            canonical=True)
+        plan = kr.spmv_routed_plan(part.indptr, part.indices, part.data, m, n)
+        calls[f"spmm_routed_{key}"] = (
+            lambda plan=plan: kr.spmm_routed(x, plan))
+    full = torch.tensor([0, 0, n, n], dtype=torch.int32, device=x.device)
+    one = kr.spmv_routed_plan(full, torch.arange(n, dtype=torch.int32,
+                                                 device=x.device),
+                              a.data[:n].contiguous(), 3, n)
+    calls["spmm_routed_one_full_row"] = lambda: kr.spmm_routed(x, one)
+    if hasattr(routed, "chunk_order"):
+        by_row = routed._replace(chunk_order=torch.arange(
+            routed.chunk_order.numel(), dtype=torch.int32, device=x.device))
+        calls["spmm_routed_chunks_in_row_order"] = (
+            lambda: kr.spmm_routed(x, by_row))
+        # the rows of 1024 chunks or more first (each set by first column),
+        # so that their closing sums overlap the other chunks' work
+        nch = (routed.long_chunk_ptr[1:]
+               - routed.long_chunk_ptr[:-1])[routed.chunk_row.long()]
+        first = routed.indices[routed.chunk_start.long()].long()
+        key = (nch < 1024).long() * n + first
+        big_first = routed._replace(chunk_order=torch.sort(
+            key, stable=True).indices.to(torch.int32))
+        calls["spmm_routed_big_rows_first"] = (
+            lambda: kr.spmm_routed(x, big_first))
+    return calls
+
+
+def spmm_turns(torch, np, pt, power_law_rows, kr, dev, out):
+    rng = np.random.default_rng(2024)
+    cells = [("spmm 10000^2/0.01 k=64",
+              pt.random(10000, 10000, 0.01, format="csr", seed=2015,
+                        device=dev)),
+             ("spmm powerlaw 2^20 k=64",
+              power_law_rows(1 << 20, 1 << 20, 16, alpha=1.5, seed=0,
+                             device=dev))]
+    for name, a in cells:
+        m, n = a.shape
+        x = torch.from_numpy(rng.standard_normal((n, 64)).astype(
+            np.float32)).to(dev)
+        args = (a.indptr, a.indices, a.data)
+        routed = kr.spmv_routed_plan(*args, m, n)
+        percall = kr.spmv_routed_plan(*args, m, n, sell=False)
+        ta = torch_sparse(torch, "csr", *args, shape=a.shape)
+        calls = {"torch_csr_mm": lambda: ta @ x,
+                 "spmm_routed": lambda: kr.spmm_routed(x, routed),
+                 "spmm_routed_percall_plan": lambda: kr.spmm_routed(
+                     x, percall)}
+        nbytes = 8 * a.nnz + 4 * (m + 1) + 4 * 64 * (n + m)
+        row = {"nnz": a.nnz, "k": 64, "long_rows": routed.long_rows.numel(),
+               "chunks": routed.chunk_start.numel(),
+               "bound_ms": max(nbytes / HBM_BYTES_S,
+                               2 * a.nnz * 64 / 67e12) * 1e3,
+               "gathered_bytes": 4 * 64 * a.nnz}
+        if name.startswith("spmm 10000"):
+            # the gather-rate probe: column ids modulo 256, so the gathers
+            # hit an X of 64 KB that stays in L1
+            small = kr.spmv_routed_plan(a.indptr, a.indices % 256, a.data,
+                                        m, 256)
+            xs = x[:256].contiguous()
+            calls["spmm_routed_l1_probe"] = lambda: kr.spmm_routed(xs, small)
+        else:
+            calls.update(powerlaw_probes(torch, pt, kr, a, x, routed))
+        row.update(in_turns(torch, calls, "torch_csr_mm", ("spmm_routed",)))
+        for key in ("spmm_routed", "spmm_routed_l1_probe"):
+            busy = row.get(key, {}).get("busy_ms")
+            if busy:
+                row[key]["gather_tb_s"] = row["gathered_bytes"] / busy / 1e9
+        out[name] = row
+        for what, plan in (("serving plan", routed), ("per-call plan",
+                                                      percall)):
+            out["bits"][f"{name} {what}"] = digest(
+                torch, kr.spmm_routed(x, plan))
+        del ta, routed, percall, calls
+        torch.cuda.empty_cache()
+    for name, (indptr, indices, data), m, n in spmm_edges(np, dev, torch):
+        for k in (1, 33, 45, 64, 128):
+            x = torch.from_numpy(rng.standard_normal((n, k)).astype(
+                np.float32)).to(dev)
+            for layout, xx in (("aligned", x), ("misaligned",
+                                                misaligned(torch, x))):
+                for kw in ({}, {"cut": 8, "ch": 16}):
+                    for sell in (True, False):
+                        p = kr.spmv_routed_plan(indptr, indices, data, m, n,
+                                                sell=sell, **kw)
+                        key = (f"spmm edge {name} k={k} {layout} "
+                               f"{'cut=8 ch=16 ' if kw else ''}sell={sell}")
+                        out["bits"][key] = digest(torch,
+                                                  kr.spmm_routed(xx, p))
 
 
 def main():
@@ -456,9 +620,17 @@ def main():
               flush=True)
         return
     other = os.path.abspath(args.against)
+    bits = []
     for repo in (other, HERE, HERE, other):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--repo",
-                        repo, "--only", *args.only], check=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--repo", repo, "--only", *args.only],
+                              check=True, stdout=subprocess.PIPE, text=True)
+        print(proc.stdout, end="", flush=True)
+        bits.append(json.loads(proc.stdout.strip().splitlines()[-1])["bits"])
+    same = {key: all(b.get(key) == bits[0][key] for b in bits)
+            for key in bits[0]}
+    print(json.dumps({"bitwise_in_every_turn": same,
+                      "all_same": all(same.values())}), flush=True)
 
 
 if __name__ == "__main__":
