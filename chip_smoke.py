@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs fourteen phases and prints findings
+`build/spmm_tpu_torch/`), then runs seventeen phases and prints findings
 for each:
 
   0. device and build: torch and CUDA versions, the card's name and power
@@ -114,7 +114,25 @@ for each:
      `bsr_spmm`'s device time and its bound on its own route (3xTF32 on the
      tensor cores) beside the FMA units' bound,
      `tobsr()`, `tocoo().tocsr()` and `tocsc()`, and the device's busy
-     time and idle share for `spmm(via="bsr_pallas")`.
+     time and idle share for `spmm(via="bsr_pallas")`;
+ 14. indexing on the card at 4000^2/0.0625 (about 1 M entries) and the
+     SpMV 16384^2/5e-3 matrix: a row slice, a row array, a column slice,
+     every 7th column, a boolean row mask, pair extraction, a submatrix
+     assignment and `setdiag`, each bitwise the port's own CPU result for
+     the same call, with its CUDA-event time;
+ 15. dtypes: `densify_onehot` and `extract_roll` bitwise against their
+     plain versions at every element width (bfloat16, float32, float64,
+     complex64, complex128) and at phase 1's edges; alg1 and blocked alg2
+     at 1024^2/0.1 in each of those dtypes against scipy at the JAX dtype
+     tests' tolerances, with both kernels seen in a profiler trace of the
+     wide alg1 call and their device times at each width; SpMV and SpMM in
+     float64 at 16384^2/5e-3 against scipy; times beside float32's;
+ 16. the precision modes "highest", "high" (3xTF32) and "default" (one
+     TF32 pass) at 1024^2/0.1 and 8192^2/1e-3, for alg1 and a serving
+     plan: time a call, device busy, the value GEMM's share, and the error
+     against scipy's float64 product (max |dC| / max|C| and the share of
+     entries outside the 1e-6 gate); "high" must pass the gate of
+     "highest", "default" only 1e-2 max|C|.
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
@@ -525,8 +543,7 @@ def phase3(cells, nnzs, smi):
         dens_args = (a.indptr, a.indices, a.data, m, k)
 
         def value_gemm():
-            with sg._ieee_fp32_matmul():
-                torch.matmul(ad, bd)
+            sg._value_matmul(ad, bd)
 
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -2072,6 +2089,387 @@ def phase13(cells, mxu, smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# indexing, dtypes and precision modes (phases 14-16)
+# --------------------------------------------------------------------------
+
+def event_ms(setup, fn, runs: int = 5) -> float:
+    """Median CUDA-event time of fn(setup()) over `runs`, the setup outside
+    the events (an assignment times on a fresh copy each run)."""
+    times = []
+    for _ in range(runs + 1):
+        x = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def _same_result(got, want) -> bool:
+    """A card result bitwise the CPU's: a CSR's structure, values and flag,
+    or a dense tensor's bits."""
+    if isinstance(want, torch.Tensor):
+        return same_bits(got.cpu(), want)
+    return (got.shape == want.shape
+            and got.has_canonical_format == want.has_canonical_format
+            and all(same_bits(x.cpu(), y) for x, y in (
+                (got.indptr, want.indptr), (got.indices, want.indices),
+                (got.data, want.data))))
+
+
+def phase14(dev, smi):
+    """Indexing on the card: each read and assignment bitwise the port's own
+    CPU result for the same call, with its CUDA-event time."""
+    rows = []
+    mats = [("4000^2/0.0625", pt.random(4000, 4000, 0.0625, format="csr",
+                                         seed=3, device="cpu")),
+            ("16384^2/5e-3", pt.random(16384, 16384, 5e-3, format="csr",
+                                        seed=2014, device="cpu"))]
+    for name, a_cpu in mats:
+        a = a_cpu.to(dev)
+        m, n = a.shape
+        rng = np.random.default_rng(14)
+        keys = {
+            "row slice": slice(m // 8, m - m // 8),
+            "row array": rng.integers(0, m, m // 4),
+            "column slice": (slice(None), slice(n // 4, n // 2)),
+            "every 7th column": (slice(None), np.arange(0, n, 7)),
+            "boolean rows": rng.random(m) < 0.3,
+            "pairs": (rng.integers(0, m, 100_000), rng.integers(0, n, 100_000)),
+        }
+        row = {"cell": name, "nnz": a.nnz}
+        for label, key in keys.items():
+            got, want = a[key], a_cpu[key]
+            if not _same_result(got, want):
+                raise AssertionError(f"{name}: a[{label}] on the card differs "
+                                     "from the CPU's")
+            row[f"{label}_ms"] = median_ms(lambda k=key: a[k], runs=5,
+                                           warmup=1)
+        b_cpu = pt.random(m // 4, n // 4, 0.01, format="csr", seed=15,
+                          device="cpu")
+        b = b_cpu.to(dev)
+        sub = (slice(m // 8, m // 8 + m // 4), slice(n // 2, n // 2 + n // 4))
+
+        def assign(x, bb):
+            x[sub] = bb
+            return x
+
+        def setdiag(x):
+            x.setdiag(2.5, k=1)
+            return x
+
+        for label, on_card, on_cpu in (
+                ("submatrix assignment", lambda x: assign(x, b),
+                 lambda x: assign(x, b_cpu)),
+                ("setdiag", setdiag, setdiag)):
+            if not _same_result(on_card(a.copy()), on_cpu(a_cpu.copy())):
+                raise AssertionError(f"{name}: {label} on the card differs "
+                                     "from the CPU's")
+            row[f"{label}_ms"] = event_ms(a.copy, on_card)
+        rows.append(row)
+        print(f"phase 14 [{smi}]: bitwise the CPU's: " + json.dumps(row),
+              flush=True)
+        del a, b
+    return rows
+
+
+WIDE = {"float64": torch.float64, "complex64": torch.complex64,
+        "complex128": torch.complex128, "bfloat16": torch.bfloat16}
+
+
+def as_dtype(a, dtype):
+    """The matrix in `dtype`; a complex one gets its values reversed as the
+    imaginary part, so both parts are non-trivial."""
+    if dtype.is_complex:
+        return a._with_data(torch.complex(a.data.float(),
+                                          a.data.flip(0).float()).to(dtype))
+    return a.astype(dtype)
+
+
+def tensor_as(x: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype.is_complex:
+        return torch.complex(x.float(), -x.float()).to(dtype)
+    return x.to(dtype)
+
+
+def wide_check(name, a, b, c, dtype) -> float:
+    """Structure bitwise against scipy's pattern product; values within
+    the JAX dtype tests' tolerance of scipy's product of the same values
+    in complex128 (1e-5 x max|C| up to 8-byte types, 1e-12 for complex128;
+    bfloat16 0.05 + 0.05 |C|).  Returns max |err| / tolerance."""
+    sa, sb = a.to_scipy(), b.to_scipy()
+    ones = [sp.csr_matrix((np.ones(x.nnz), x.indices, x.indptr), x.shape)
+            for x in (sa, sb)]
+    struct = (ones[0] @ ones[1]).tocsr()
+    struct.sort_indices()
+    if not (np.array_equal(c.indptr.cpu().numpy(), struct.indptr)
+            and np.array_equal(c.indices.cpu().numpy(), struct.indices)):
+        raise AssertionError(f"{name}: structure differs from scipy")
+    ref = (sa.astype(np.complex128) @ sb.astype(np.complex128)).tocsr()
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(struct.indptr))
+    want = np.asarray(ref[rows, struct.indices.astype(np.int64)]).ravel()
+    got = c.data.cpu()
+    got = (got.float() if dtype == torch.bfloat16 else got).numpy()
+    if dtype == torch.bfloat16:
+        tol = 0.05 + 0.05 * np.abs(want)
+    else:
+        rel = 1e-12 if dtype == torch.complex128 else 1e-5
+        tol = np.full(want.shape, rel * np.abs(want).max())
+    ratio = float((np.abs(got - want) / tol).max()) if want.size else 0.0
+    if ratio > 1.0:
+        raise AssertionError(f"{name}: off scipy by {ratio:.3g}x the "
+                             "tolerance")
+    return ratio
+
+
+def kernel_counts(fn, names):
+    """Launches per call of `fn` of each kernel whose name holds one of
+    `names`, from a profiler trace of 20 calls, or of 100 where that trace
+    came back without device events (as `kernel_ms`)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for calls in (20, 100):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen:
+            return {n: sum(n in k for k in seen) / calls for n in names}
+    return dict.fromkeys(names)
+
+
+def bsr_fma_check(dev, a32, smi) -> dict:
+    """bsr_spmm's FMA kernel (bfloat16, float64, int32) at the (8, 128)
+    re-tiling of `a32` times an (n, SPMM_K) X and at a ragged edge, against
+    the plain version of the same inputs on the CPU (where torch multiplies
+    int32): bitwise for int32, within 1e-12 (float64) or 2^-6 (bfloat16) of
+    each entry's absolute sum; bitwise on rerun; spmm(via="bsr_pallas")
+    launches it.  A complex BSR raises, as JAX's kernel does."""
+    rng = np.random.default_rng(2024)
+    edge = pt.random(40, 200, 0.1, format="csr", seed=2, device=dev)
+    mats = [(a32.tobsr((8, 128)), a32.shape[1], SPMM_K),
+            (edge.tobsr((8, 128)), 200, 70)]
+    xs = [torch.from_numpy(rng.standard_normal((k, n)).astype(
+        np.float32)).to(dev) for _, k, n in mats]
+    row = {"cell": f"{CELLS[0][0]} -> (8,128) @ X (k={SPMM_K})",
+           "kernel": "bsr_spmm_fma"}
+    for label, dtype in (("bfloat16", torch.bfloat16),
+                         ("float64", torch.float64), ("int32", torch.int32)):
+        def conv(t):
+            return (t * 8).round().to(dtype) if dtype == torch.int32 \
+                else t.to(dtype)
+
+        for (ab, _, _), x32 in zip(mats, xs):
+            ab = ab._with_data(conv(ab.data))
+            x = conv(x32)
+            m = ab.shape[0]
+            args = (ab.indptr, ab.indices, ab.data, x, m)
+            before = _build.LAUNCHES["bsr_spmm"]
+            got = bsr_spmm(*args)
+            y = pt.spmm(ab, x, via="bsr_pallas")
+            if _build.LAUNCHES["bsr_spmm"] != before + 2:
+                raise AssertionError(f"bsr_spmm {label}: no launch")
+            if not (same_bits(got, bsr_spmm(*args)) and same_bits(got, y)):
+                raise AssertionError(f"bsr_spmm {label}: not bitwise on "
+                                     "rerun")
+            host = [t.cpu() for t in args[:4]]
+            want = bsr_spmm_plain(*host, m)
+            if dtype == torch.int32:
+                ratio = 0.0 if same_bits(got.cpu(), want) else float("inf")
+            else:
+                scale = bsr_spmm_plain(*host[:2], host[2].double().abs(),
+                                       host[3].double().abs(), m)
+                rel = 2.0**-6 if dtype == torch.bfloat16 else 1e-12
+                diff = (got.cpu().double() - want.double()).abs()
+                ratio = float((diff / (rel * scale).clamp_min(1e-300))
+                              .max()) if diff.numel() else 0.0
+            if ratio > 1.0:
+                raise AssertionError(f"bsr_spmm {label} != plain at "
+                                     f"{tuple(ab.shape)}: {ratio:.3g}x tol")
+            if m == a32.shape[0]:
+                row[f"{label}_err_over_tol"] = ratio
+                row[f"{label}_ms"] = median_ms(lambda: bsr_spmm(*args))
+                row[f"{label}_plain_ms"] = (
+                    None if dtype == torch.int32  # no int32 bmm on the card
+                    else median_ms(lambda: bsr_spmm_plain(*args)))
+    ab = mats[0][0]
+    row["float32_ms"] = median_ms(
+        lambda: bsr_spmm(ab.indptr, ab.indices, ab.data, xs[0], ab.shape[0]))
+    abc = ab._with_data(ab.data.to(torch.complex64))
+    try:
+        pt.spmm(abc, xs[0].to(torch.complex64), via="bsr_pallas")
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("bsr_spmm of complex64 did not raise")
+    print(f"phase 15 [{smi}]: bsr_spmm's FMA kernel vs plain: "
+          + json.dumps(row), flush=True)
+    return row
+
+
+def phase15(dev, smi):
+    """Dtypes: densify_rows and extract_roll bitwise against their plain
+    versions at every element width and at phase 1's edges; bsr_spmm's
+    FMA kernel against its plain version (`bsr_fma_check`); alg1 and
+    blocked alg2 at 1024^2/0.1 in each wide dtype against scipy, with the
+    kernels seen in a profiler trace; SpMV and SpMM in float64 at
+    16384^2/5e-3; times beside float32's."""
+    name, n, density, sa, sb = CELLS[0]
+    a32 = pt.random(n, n, density, format="csr", seed=sa, device=dev)
+    b32 = pt.random(n, n, density, format="csr", seed=sb, device=dev)
+    mats = [a32, b32, edge_csr(dev), *densify_edges(dev)]
+    edges = extract_edges(dev)
+    checked = 0
+    for dtype in (torch.float32, *WIDE.values()):
+        for mat in mats:
+            vals = tensor_as(mat.data, dtype)
+            for with_pattern in (True, False):
+                args = (mat.indptr, mat.indices, vals, *mat.shape)
+                got = densify_onehot(*args, with_pattern=with_pattern)
+                again = densify_onehot(*args, with_pattern=with_pattern)
+                want = densify_onehot_plain(*args, with_pattern=with_pattern)
+                if not all(same_bits(x, y) and same_bits(z, y)
+                           for x, y, z in zip(got, want, again)):
+                    raise AssertionError(f"densify at {dtype} != plain at "
+                                         f"{mat.shape}")
+                checked += 1
+        for ename, c, mask in edges:
+            cw = tensor_as(c, dtype)
+            nnz = int(mask.sum())
+            for cap in (nnz, nnz + 5, max(nnz - 5, 0), 0):
+                got = extract_roll(cw, mask, cap)
+                want = extract_roll_plain(cw, mask, cap)
+                if not all(same_bits(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"extract at {dtype} != plain at "
+                                         f"{ename} cap={cap}")
+                checked += 1
+    torch.cuda.synchronize()
+    print(f"phase 15: densify_onehot and extract_roll bitwise their plain "
+          f"versions at 2, 4, 8 and 16 bytes: {checked} calls over "
+          f"{len(mats)} CSRs and {len(edges)} masks", flush=True)
+    rows = [bsr_fma_check(dev, a32, smi)]
+    for label, dtype in (("float32", torch.float32), *WIDE.items()):
+        a, b = as_dtype(a32, dtype), as_dtype(b32, dtype)
+        row = {"cell": name, "dtype": label}
+        for alg in (1, 2):
+            c = pt.spgemm(a, b, alg=alg)
+            row[f"alg{alg}_err_over_tol"] = wide_check(
+                f"{name} alg{alg} {label}", a, b, c, dtype)
+            if c.dtype != dtype:
+                raise AssertionError(f"alg{alg} {label} gave {c.dtype}")
+            row[f"alg{alg}_ms"] = median_ms(lambda: pt.spgemm(a, b, alg=alg))
+        seen = kernel_counts(lambda: pt.spgemm(a, b, alg=1),
+                             ("densify_rows", "extract_tiles"))
+        row["alg1_trace_per_call"] = seen
+        if not (seen["densify_rows"] and seen["extract_tiles"]):
+            raise AssertionError(f"alg1 {label}: the kernels are missing "
+                                 f"from its trace: {seen}")
+        m, k = a.shape
+        dens = (a.indptr, a.indices, a.data, m, k)
+        row["densify_device_ms"] = kernel_ms(lambda: densify_onehot(*dens),
+                                             "densify_rows")
+        cd, mask, nnz = sg._alg1_dense_compute(a, b, 1.0)
+        nnz = int(nnz)
+        row["extract_device_ms"] = kernel_ms(
+            lambda: extract_roll(cd, mask, nnz), "extract_tiles")
+        del cd, mask
+        rows.append(row)
+        print(f"phase 15 [{smi}]: " + json.dumps(row), flush=True)
+    a_mv = pt.random(16384, 16384, 5e-3, format="csr", seed=2014, device=dev)
+    rng = np.random.default_rng(2024)
+    n_mv = a_mv.shape[1]
+    x = torch.from_numpy(rng.standard_normal(n_mv)).to(dev)
+    X = torch.from_numpy(rng.standard_normal((n_mv, SPMM_K))).to(dev)
+    s64 = a_mv.to_scipy().astype(np.float64)
+    mv = {"cell": "16384^2/5e-3"}
+    for label, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        a, xv, Xv = a_mv.astype(dtype), x.to(dtype), X.to(dtype)
+        y, Y = pt.spmv(a, xv), pt.spmm(a, Xv)
+        if y.dtype != dtype or Y.dtype != dtype:
+            raise AssertionError(f"spmv/spmm {label} gave {y.dtype}")
+        for got, xx in ((y, xv), (Y, Xv)):
+            xh = xx.cpu().double().numpy()
+            ref, scale = s64 @ xh, abs(s64) @ np.abs(xh)
+            bound = (1e-12 if dtype == torch.float64 else ROW_TOL) * scale
+            if not (np.abs(got.cpu().double().numpy() - ref) <= bound).all():
+                raise AssertionError(f"spmv/spmm {label} off scipy")
+        if not (same_bits(pt.spmv(a, xv), y) and same_bits(pt.spmm(a, Xv), Y)):
+            raise AssertionError(f"spmv/spmm {label} not bitwise on rerun")
+        mv[f"spmv_{label}_ms"] = median_ms(lambda: pt.spmv(a, xv))
+        mv[f"spmm_{label}_ms"] = median_ms(lambda: pt.spmm(a, Xv))
+    rows.append(mv)
+    print(f"phase 15 [{smi}]: within 1e-12 (float64) and 1e-6 (float32) of "
+          "each row's |A||x| of scipy, bitwise on rerun: " + json.dumps(mv),
+          flush=True)
+    return rows
+
+
+def phase16(smi):
+    """Precision modes at full size: alg1 and spgemm_plan calls at
+    1024^2/0.1 and 8192^2/1e-3 in "highest", "high" and "default"; time a
+    call, device busy, the value GEMM's share of it, and the error against
+    scipy's float64 product.  "high" must pass the gate of "highest" (rtol
+    1e-6 + atol 1e-6 max|C|); "default" is gated at 1e-2 max|C| only."""
+    rows = []
+    dev = torch.device("cuda", 0)
+    for name, n, density, sa, sb in (CELLS[0], CELLS[2]):
+        a = pt.random(n, n, density, format="csr", seed=sa, device=dev)
+        b = pt.random(n, n, density, format="csr", seed=sb, device=dev)
+        ref = ScipyRef(a, b)
+        want = ref.want
+        scale = np.abs(want).max()
+        gate = RTOL * np.abs(want) + RTOL * scale
+        ad, _ = densify_onehot(a.indptr, a.indices, a.data, n, n,
+                               with_pattern=False)
+        bd, _ = densify_onehot(b.indptr, b.indices, b.data, n, n,
+                               with_pattern=False)
+        for mode in sg.PRECISIONS:
+            plan = pt.spgemm_plan(a, b, precision=mode)
+            for path, call in (("alg1", lambda: pt.spgemm(
+                    a, b, alg=1, precision=mode)),
+                    ("plan", lambda: plan(a.data, b.data))):
+                c = call()
+                if not (np.array_equal(c.indptr.cpu().numpy(), ref.indptr)
+                        and np.array_equal(c.indices.cpu().numpy(),
+                                           ref.indices)):
+                    raise AssertionError(f"{name} {path} {mode}: structure")
+                err = np.abs(c.data.cpu().double().numpy() - want)
+                row = {"cell": name, "path": path, "mode": mode,
+                       "max_err_over_max_c": float(err.max() / scale),
+                       "share_outside_1e-6_gate": float((err > gate).mean()),
+                       "ms": median_ms(call)}
+                busy, top = device_profile(call)
+                row["device_busy_ms"] = busy
+                gemm, _ = device_profile(
+                    lambda: sg._value_matmul(ad, bd, mode))
+                row["gemm_device_ms"] = gemm
+                row["gemm_share"] = (None if not busy or gemm is None
+                                     else gemm / busy)
+                row["device_top_ms"] = top[:3]
+                rows.append(row)
+                print(f"phase 16 [{smi}]: " + json.dumps(row), flush=True)
+                if mode in ("highest", "high") and (err > gate).any():
+                    raise AssertionError(f"{name} {path} {mode}: outside "
+                                         "the 1e-6 gate")
+                if mode == "default" and err.max() > 1e-2 * scale:
+                    raise AssertionError(f"{name} {path} default: error "
+                                         "past 1e-2 max|C|")
+            del plan
+        del ad, bd, a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -2108,6 +2506,10 @@ def main():
     # csr_densify_mxu at 8192^2/1e-3 (256 MB out)
     t_bsr = next(r for r in rows13 if r["cell"] == BSR_CELLS[-1][0])
     t_mxu = next(r for r in rows13 if r["cell"] == MXU_CELLS[-1][0])
+    torch.cuda.empty_cache()
+    phase14(dev, smi)
+    phase15(dev, smi)
+    phase16(smi)
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]

@@ -8,7 +8,9 @@ torch device, with the conversions between them, the constructors,
 and the fixed-structure serving plans `spgemm_plan` / `SpgemmPlan`) and the
 SpMV/SpMM paths (`spmv`, `spmv_plan`, `spmm` with its CSR, dense and BSR
 routes, `break_even_density`, and `A @ x`, `A @ X`, `x @ A`, `X @ A` for
-every format), with eleven hand-written CUDA kernels in place of the
+every format) in JAX's dtypes and precision modes, CSR indexing and
+assignment (`A[...]`, `A[...] = B`, `setdiag`, `getcol`), with eleven
+hand-written CUDA kernels in place of the
 Pallas ones, and two of the port's own (the in-order segment sum and the
 binned SpMV plan), built with `nvcc` for `sm_90a` on first use.  Its
 constructors put data on the card unless `device="cpu"` is passed, or the

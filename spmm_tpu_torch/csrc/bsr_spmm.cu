@@ -1,5 +1,6 @@
 // C = A_bsr @ B: block-sparse (BSR) times dense, float32, on the tensor
-// cores in 3xTF32.
+// cores in 3xTF32 (bfloat16, float64 and int32 on the FMA units: see
+// bsr_spmm_fma below).
 //
 // Replaces the Pallas kernel `bsr_spmm_pallas` of
 // spmm_tpu/ops/kernels/bsr_spmm.py (kernel body `_kernel`).  The TPU kernel
@@ -51,6 +52,7 @@
 // that meets it (from L2 where it fits), which bounds the (8, 128) cell:
 // 16 KB of A and 128 KB of B a block for 0.5 MFLOP.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -310,6 +312,110 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The other dtypes of the TPU kernel (bfloat16; float64 and int32, which
+// the JAX kernel computes off the TPU) on the FMA units: one thread a (row
+// of the block, column of B), the row's blocks in stored order.  Each
+// block's product is summed in the accumulate type (float for bfloat16, the
+// type itself otherwise), rounded to the stored type, and added to the
+// running sum in that type, as the TPU kernel's `out_ref += jnp.dot(...,
+// preferred_element_type=out_ref.dtype)` rounds it: a bfloat16 sum rounds
+// after every block; int32 wraps.  Neighbouring threads take neighbouring
+// columns, so B's rows load coalesced and the block's row is one broadcast
+// a step.  Columns of the block past K add nothing (the plain version's
+// zero padding).
+
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ int widen(int v) { return v; }
+
+// acc + a * b
+__device__ __forceinline__ float mad(float acc, float a, float b) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double mad(double acc, double a, double b) {
+  return fma(a, b, acc);
+}
+__device__ __forceinline__ int mad(int acc, int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(acc) +
+                          static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+template <typename T, typename A>
+__device__ __forceinline__ T narrow(A v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// s + p in the stored type
+__device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 s,
+                                             __nv_bfloat16 p) {
+  return __float2bfloat16_rn(__bfloat162float(s) + __bfloat162float(p));
+}
+__device__ __forceinline__ double add(double s, double p) { return s + p; }
+__device__ __forceinline__ int add(int s, int p) {
+  return static_cast<int>(static_cast<unsigned>(s) + static_cast<unsigned>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T{};
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
+}
+
+constexpr int kWideThreads = 128;
+
+template <typename T, typename A>
+__global__ void __launch_bounds__(kWideThreads)
+    bsr_spmm_fma(const int* __restrict__ indptr,
+                 const int* __restrict__ indices,
+                 const T* __restrict__ blocks, const T* __restrict__ b,
+                 T* __restrict__ out, int R, int C, long long m, long long K,
+                 int N) {
+  const int r = blockIdx.x;  // block row
+  const int n = blockIdx.y * kWideThreads + threadIdx.x;
+  if (n >= N) return;
+  // rows of the block, gridDim.z apart
+  for (int i = blockIdx.z; i < R; i += gridDim.z) {
+    const long long row = static_cast<long long>(r) * R + i;
+    if (row >= m) return;
+    T sum = zero<T>();
+    for (int p = indptr[r]; p < indptr[r + 1]; ++p) {
+      const T* a = blocks + (static_cast<long long>(p) * R + i) * C;
+      const long long k0 = static_cast<long long>(indices[p]) * C;
+      const int cols = static_cast<int>(K - k0 < C ? K - k0 : C);
+      const T* x = b + k0 * N + n;
+      A part = widen(zero<T>());
+      for (int c = 0; c < cols; ++c) {
+        part = mad(part, widen(a[c]),
+                   widen(x[static_cast<long long>(c) * N]));
+      }
+      sum = add(sum, narrow<T>(part));
+    }
+    out[row * N + n] = sum;
+  }
+}
+
+template <typename T, typename A>
+int launch_fma(const int* indptr, const int* indices, const void* blocks,
+               const void* b, void* out, int mb, int R, int C, long long m,
+               long long K, int N, cudaStream_t stream) {
+  const dim3 grid(mb, (N + kWideThreads - 1) / kWideThreads,
+                  R < 65535 ? R : 65535);
+  bsr_spmm_fma<T, A><<<grid, kWideThreads, 0, stream>>>(
+      indptr, indices, static_cast<const T*>(blocks),
+      static_cast<const T*>(b), static_cast<T*>(out), R, C, m, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out (m, N) = A @ b with A given as BSR (indptr over mb block rows, block
@@ -341,4 +447,28 @@ extern "C" int spmm_bsr_spmm(const int* indptr, const int* indices,
   }
   return launch<2, 4, 2, 4>(indptr, indices, blocks, b, out, mb, R, C, m, K,
                             N, vec, s);
+}
+
+// The same product for the other dtypes, on the FMA units (bsr_spmm_fma
+// above).  dtype: 0 bfloat16, 1 float64, 2 int32.  Same arguments and
+// guarantees as spmm_bsr_spmm; cudaErrorInvalidValue for an unknown dtype.
+extern "C" int spmm_bsr_spmm_wide(const int* indptr, const int* indices,
+                                  const void* blocks, const void* b,
+                                  void* out, int mb, int R, int C,
+                                  long long m, long long K, int N, int dtype,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_fma<__nv_bfloat16, float>(indptr, indices, blocks, b,
+                                              out, mb, R, C, m, K, N, s);
+    case 1:
+      return launch_fma<double, double>(indptr, indices, blocks, b, out, mb,
+                                        R, C, m, K, N, s);
+    case 2:
+      return launch_fma<int, int>(indptr, indices, blocks, b, out, mb, R, C,
+                                  m, K, N, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -50,6 +50,14 @@
 // kept cell, 4 a row).  The parent design read the mask twice, in a count
 // pass and a per-row compaction pass around a scan of its own.
 //
+// The kernel is a template over the element's width, 2, 4, 8 or 16 bytes
+// (bfloat16; float32; float64 and complex64; complex128): a kept value is
+// moved as one item of that width and never looked at, so the output is
+// bitwise c's values at every width, and consecutive threads still write
+// consecutive slots (a warp's value stores are 64 to 512 contiguous
+// bytes).  The float32 instance is the kernel as it was before the
+// template.  Bytes a kept cell: w to read, 4 + w to write at a width of w.
+//
 // Offsets into c fit int32: the wrapper checks m*n < 2^31.
 
 #include <cuda_runtime.h>
@@ -147,14 +155,14 @@ __device__ int look_back(unsigned long long* tiles, int tile, int mine,
 
 // status[0] is the ticket; status[1 + t] tile t's status word; both zero
 // at launch.  A tile is kThreads * kCells cells, kCells consecutive cells
-// a thread.
-template <int kCells>
+// a thread; V is the item a value moves as.
+template <int kCells, typename V>
 __global__ void __launch_bounds__(kThreads)
-    extract_tiles(const float* __restrict__ c,
+    extract_tiles(const V* __restrict__ c,
                   const unsigned char* __restrict__ mask,
                   unsigned long long* status, int* __restrict__ indptr,
-                  int* __restrict__ col, float* __restrict__ vals, int m,
-                  int n, int cap, int ntiles) {
+                  int* __restrict__ col, V* __restrict__ vals, int m, int n,
+                  int cap, int ntiles) {
   constexpr int kTile = kThreads * kCells;
   __shared__ unsigned short kept[kTile];  // offsets of the kept cells
   __shared__ unsigned long long bits_of[kThreads];
@@ -189,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
                              (j + 1) * kTailSlots);
     for (long long i = lo + t; i < hi; i += kThreads) {
       col[i] = 0;
-      vals[i] = 0.0f;
+      vals[i] = V();  // all bits zero
     }
     return;
   }
@@ -249,19 +257,39 @@ __global__ void __launch_bounds__(kThreads)
   if (tile == ntiles - 1 && t == 0) indptr[m] = base + tile_total;
 }
 
+// The kernel at one tile size and value item, on `stream`.
+template <typename V>
+void launch_tiles(const void* c, const unsigned char* mask,
+                  unsigned long long* ws, int* indptr, int* col, void* vals,
+                  int m, int n, int cap, int tile_cells, unsigned grid,
+                  int ntiles, cudaStream_t s) {
+  const V* cv = static_cast<const V*>(c);
+  V* vv = static_cast<V*>(vals);
+  if (tile_cells == 4096) {
+    extract_tiles<16, V><<<grid, kThreads, 0, s>>>(cv, mask, ws, indptr, col,
+                                                   vv, m, n, cap, ntiles);
+  } else {
+    extract_tiles<64, V><<<grid, kThreads, 0, s>>>(cv, mask, ws, indptr, col,
+                                                   vv, m, n, cap, ntiles);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream`: a cudaMemsetAsync of the workspace `ws`
 // ((m*n + tile_cells - 1) / tile_cells + 1 words of 8 bytes), then the
-// kernel; returns the first CUDA error.  The caller guarantees m, n > 0,
-// m*n < 2^31, 0 <= cap < 2^31, tile_cells 4096 or 16384 (16 or 64 cells
-// a thread), and outputs of m + 1 and cap entries; none needs a fill.
-extern "C" int spmm_extract_roll(const float* c, const unsigned char* mask,
+// kernel; returns the first CUDA error.  `c` and `vals` hold elements of
+// `width` bytes (2, 4, 8 or 16), aligned to their width.  The caller
+// guarantees m, n > 0, m*n < 2^31, 0 <= cap < 2^31, tile_cells 4096 or
+// 16384 (16 or 64 cells a thread), and outputs of m + 1 and cap entries;
+// none needs a fill.
+extern "C" int spmm_extract_roll(const void* c, const unsigned char* mask,
                                  unsigned long long* ws, int* indptr,
-                                 int* col, float* vals, int m, int n,
-                                 int cap, int tile_cells, void* stream) {
+                                 int* col, void* vals, int m, int n, int cap,
+                                 int tile_cells, int width, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_cells != 4096 && tile_cells != 16384) {
+  if ((tile_cells != 4096 && tile_cells != 16384) ||
+      (width != 2 && width != 4 && width != 8 && width != 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long total = static_cast<long long>(m) * n;
@@ -273,12 +301,22 @@ extern "C" int spmm_extract_roll(const float* c, const unsigned char* mask,
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>(ntiles + ntail);
   const int nt = static_cast<int>(ntiles);
-  if (tile_cells == 4096) {
-    extract_tiles<16><<<grid, kThreads, 0, s>>>(c, mask, ws, indptr, col,
-                                                vals, m, n, cap, nt);
-  } else {
-    extract_tiles<64><<<grid, kThreads, 0, s>>>(c, mask, ws, indptr, col,
-                                                vals, m, n, cap, nt);
+  switch (width) {
+    case 2:
+      launch_tiles<unsigned short>(c, mask, ws, indptr, col, vals, m, n, cap,
+                                   tile_cells, grid, nt, s);
+      break;
+    case 4:
+      launch_tiles<float>(c, mask, ws, indptr, col, vals, m, n, cap,
+                          tile_cells, grid, nt, s);
+      break;
+    case 8:
+      launch_tiles<uint2>(c, mask, ws, indptr, col, vals, m, n, cap,
+                          tile_cells, grid, nt, s);
+      break;
+    default:
+      launch_tiles<uint4>(c, mask, ws, indptr, col, vals, m, n, cap,
+                          tile_cells, grid, nt, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

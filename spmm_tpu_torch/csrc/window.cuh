@@ -6,9 +6,10 @@
 // cells, one CTA each, whatever the rows.  The CTA zeroes its window in
 // shared memory, sets the cells of the entries that fall in it, and after
 // a barrier writes the window out with 16-byte stores.  Windows start at
-// multiples of kWindow cells, so every store of an output that starts on a
-// 16-byte boundary is aligned whatever k is; only an output that does not
-// (a workspace given by the caller) and the last window's ragged tail take
+// multiples of the window (kWindow cells, or 16 KB of values at elements of
+// 8 or 16 bytes), so every store of an output that starts on a 16-byte
+// boundary is aligned whatever k is; only an output that does not (a
+// workspace given by the caller) and the last window's ragged tail take
 // narrow stores.
 
 #pragma once

@@ -47,6 +47,20 @@ def f32(x) -> float:
         return float(np.float32(x))
 
 
+def scalar_as(x, dtype: torch.dtype):
+    """A scalar (a Python number, a 0-d array or tensor) rounded to `dtype`
+    once, as JAX's `jnp.asarray(alpha, a.dtype)` rounds it, as a Python
+    number: float32 through `f32`; otherwise through a float64 or
+    complex128 tensor cast to `dtype` (a complex value cast to a real dtype
+    keeps its real part, with torch's warning)."""
+    if isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
+        x = x.item()
+    if dtype == torch.float32 and not isinstance(x, complex):
+        return f32(x)
+    wide = torch.complex128 if isinstance(x, complex) else torch.float64
+    return torch.tensor(x, dtype=wide).to(dtype).item()
+
+
 def lexsort_rowcol(row: torch.Tensor, col: torch.Tensor,
                    carried: Sequence[torch.Tensor], shape):
     """Stable-sort COO triplets into (row, col) lexicographic order.

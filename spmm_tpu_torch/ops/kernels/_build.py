@@ -50,12 +50,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # indptr, indices, data, val, pat, m, k, stream
-    "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _P),
+    # indptr, indices, data, val, pat, m, k, width, stream
+    "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
     # indptr, indices, pat, m, k, stream
     "spmm_densify_pattern": (_P, _P, _P, _I, _L, _P),
-    # c, mask, ws, indptr, col, vals, m, n, cap, tile_cells, stream
-    "spmm_extract_roll": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # c, mask, ws, indptr, col, vals, m, n, cap, tile_cells, width, stream
+    "spmm_extract_roll": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # indptr, indices, data, x, rows, class_off, piece_end, piece_row,
     # counters, partial, y, m, max_units, stream
     "spmm_spmv_binned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -84,6 +84,9 @@ _SIGNATURES = {
     "spmm_compress_routed": (_P, _P, _I, _P, _P, _L, _F, _F, _P),
     # indptr, indices, blocks, b, out, mb, R, C, m, K, N, stream
     "spmm_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
+    # the same and dtype
+    "spmm_bsr_spmm_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
+                           _P),
     # indptr, indices, data, out, m, k, stream
     "spmm_densify_mxu": (_P, _P, _P, _P, _I, _I, _P),
 }

@@ -33,14 +33,17 @@ def csr_for_plan(indptr, indices, data, device):
                                               np.float32)))
 
 
-def check_csr(indptr, indices, data, m: int, what: str) -> None:
+def check_csr(indptr, indices, data, m: int, what: str,
+              widths=None) -> None:
     """A CSR's arrays: contiguous 1-D int32 / int32 / float32 on one CPU or
     CUDA device, indptr of length m + 1.  `data` None checks the structure
-    alone (against the device of `indices`)."""
+    alone (against the device of `indices`); with `widths`, data may be of
+    any dtype whose element size is one of them."""
     arrays = [("indptr", indptr, prim.INDEX_DTYPE),
               ("indices", indices, prim.INDEX_DTYPE)]
     if data is not None:
-        arrays.append(("data", data, torch.float32))
+        arrays.append(("data", data, torch.float32 if widths is None
+                       or data.element_size() not in widths else data.dtype))
     ref, ref_name = arrays[-1][1], arrays[-1][0]
     for name, t, dtype in arrays:
         if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():

@@ -1,4 +1,4 @@
-"""Canonical CSR -> dense f32 values + bf16 structural 0/1 pattern, or the
+"""Canonical CSR -> dense values + bf16 structural 0/1 pattern, or the
 pattern alone.
 
 Port of `spmm_tpu/ops/kernels/densify_onehot.py::densify_onehot` and
@@ -10,14 +10,18 @@ a call (`densify_onehot` runs twice in every alg1 product,
 `densify_onehot_pattern` on every tile of the blocked engines' symbolic
 phase): its kernel writes each 4096-cell window of its outputs once, zeros
 included, so no fill runs before it, and the wrapper checks its arguments
-in one expression and launches through `_build.launch`.
+in one expression and launches through `_build.launch`.  The values may be
+of any dtype of 2, 4, 8 or 16 bytes (bfloat16, float32, float64,
+complex64, complex128, ...): the kernel moves each as one item of its
+width, so every width is bitwise its plain version.
 `densify_onehot_windows` repeats the window arithmetic on the CPU at any
 window size, for tests.
 
 The TPU kernels' static chunk plan (`densify_onehot_plan`) and their bf16
 value splits exist because the TPU has no vector scatter; the CUDA kernels
 need neither, so the port takes no plan.  Bound on the card: the bytes of
-the dense outputs (6 bytes a dense cell, 2 for the pattern alone).
+the dense outputs (w + 2 bytes a dense cell at values of w bytes, 2 for the
+pattern alone).
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ import torch
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
 from spmm_tpu_torch.ops.kernels._checks import check_csr
+
+# bytes of a value item the kernel moves (csrc/densify.cu's instances)
+WIDTHS = (2, 4, 8, 16)
 
 
 def densify_onehot_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -53,7 +60,7 @@ def densify_onehot_windows(indptr: torch.Tensor, indices: torch.Tensor,
     set from the entries of the rows [e0 // k, (e0 + n - 1) // k] that
     meet it (found from indptr), then written out whole."""
     cells = m * k
-    val = torch.empty(cells, dtype=torch.float32)
+    val = torch.empty(cells, dtype=data.dtype)
     pat = torch.empty(cells, dtype=torch.bfloat16)
     ip = indptr.long()
     cols = indices.long()
@@ -65,7 +72,7 @@ def densify_onehot_windows(indptr: torch.Tensor, indices: torch.Tensor,
                                           p.numel()).long()
         w = rows * k + cols[p] - e0
         keep = (cols[p] >= 0) & (cols[p] < k) & (w >= 0) & (w < n)
-        win_val = torch.zeros(window, dtype=torch.float32)
+        win_val = torch.zeros(window, dtype=data.dtype)
         win_pat = torch.zeros(window, dtype=torch.bfloat16)
         win_val[w[keep]] = data[p[keep]]
         win_pat[w[keep]] = 1.0
@@ -78,17 +85,19 @@ def densify_onehot(indptr: torch.Tensor, indices: torch.Tensor,
                    data: torch.Tensor, m: int, k: int,
                    with_pattern: bool = True
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Dense (m, k) f32 values and, when `with_pattern`, the (m, k) bf16
-    structural 0/1 pattern (explicit zeros kept) of a canonical CSR."""
+    """Dense (m, k) values of `data`'s dtype and, when `with_pattern`, the
+    (m, k) bf16 structural 0/1 pattern (explicit zeros kept) of a canonical
+    CSR."""
     # one expression on every call; the worded checks only where it fails
     dev = data.get_device()
+    width = data.element_size()
     if not (indptr.dtype == indices.dtype == prim.INDEX_DTYPE
-            and data.dtype == torch.float32 and indptr.shape == (m + 1,)
+            and width in WIDTHS and indptr.shape == (m + 1,)
             and indices.dim() == 1 and indices.shape == data.shape
             and indptr.get_device() == indices.get_device() == dev
             and indptr.is_contiguous() and indices.is_contiguous()
             and data.is_contiguous()):
-        check_csr(indptr, indices, data, m, "densify_onehot")
+        check_csr(indptr, indices, data, m, "densify_onehot", WIDTHS)
         raise ValueError("densify_onehot: bad arguments")
     if not data.is_cuda:
         if data.device.type != "cpu":
@@ -97,15 +106,16 @@ def densify_onehot(indptr: torch.Tensor, indices: torch.Tensor,
         return densify_onehot_plain(indptr, indices, data, m, k, with_pattern)
     if m == 0 or k == 0 or data.numel() == 0:
         # no launch: a zero-size grid is a launch error
-        return (torch.zeros((m, k), dtype=torch.float32, device=data.device),
+        return (torch.zeros((m, k), dtype=data.dtype, device=data.device),
                 torch.zeros((m, k), dtype=torch.bfloat16, device=data.device)
                 if with_pattern else None)
-    val = torch.empty((m, k), dtype=torch.float32, device=data.device)
+    val = torch.empty((m, k), dtype=data.dtype, device=data.device)
     pat = (torch.empty((m, k), dtype=torch.bfloat16, device=data.device)
            if with_pattern else None)
     err = _build.launch(dev, "spmm_densify", indptr.data_ptr(),
                         indices.data_ptr(), data.data_ptr(), val.data_ptr(),
-                        pat.data_ptr() if with_pattern else None, m, k)
+                        pat.data_ptr() if with_pattern else None, m, k,
+                        width)
     _build.check(err, "densify_onehot")
     _build.LAUNCHES["densify_onehot"] += 1
     return val, pat

@@ -11,12 +11,16 @@ decoupled look-back scan); on a CPU tensor it runs `extract_roll_plain`.
 `extract_roll_tiles` and `lookback_prefixes` emulate the kernel's index
 arithmetic on the CPU, for the tests.
 
+The values may be of any dtype of 2, 4, 8 or 16 bytes (bfloat16, float32,
+float64, complex64, complex128, ...): the kernel moves each as one item of
+its width, so every width is bitwise its plain version.
+
 `cap` is the length of the returned `col`/`vals`: slots past the kept
 count are zero, and kept cells past `cap` are dropped.  `indptr` is not
 clamped (the caller clamps, as `_alg1_fixed` does).  The JAX function's
 `g_pad` bucket only sizes its roll plan and has no counterpart here.
 Bound on the card: bytes (the mask read once, kept values once, col, vals
-and indptr written once).
+and indptr written once: 1 byte a cell, 8 + w a kept cell of w bytes).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from spmm_tpu_torch.ops.kernels import _build
 # the larger tiles (fewer CTAs, more loads in flight in each)
 TILE_CELLS = (4096, 16384)
 LARGE_MASK = 1 << 24
+# bytes of a value item the kernel moves (csrc/extract.cu's instances)
+WIDTHS = (2, 4, 8, 16)
 
 
 def tile_cells(cells: int) -> int:
@@ -142,9 +148,11 @@ def lookback_prefixes(counts, lanes: int = 32, seed: int = 0):
 
 def _check(c: torch.Tensor, mask: torch.Tensor, cap: int) -> None:
     """Raise, worded, on what `extract_roll` does not take."""
-    if c.dtype != torch.float32 or c.dim() != 2 or not c.is_contiguous():
-        raise ValueError(f"extract_roll: c must be a contiguous 2-D float32 "
-                         f"tensor, got {c.dtype} {tuple(c.shape)}")
+    if (c.element_size() not in WIDTHS or c.dtype == torch.bool
+            or c.dim() != 2 or not c.is_contiguous()):
+        raise ValueError(f"extract_roll: c must be a contiguous 2-D tensor "
+                         f"of 2, 4, 8 or 16-byte elements, got {c.dtype} "
+                         f"{tuple(c.shape)}")
     if (mask.dtype != torch.bool or mask.shape != c.shape
             or not mask.is_contiguous()):
         raise ValueError(f"extract_roll: mask must be a contiguous bool "
@@ -167,7 +175,8 @@ def extract_roll(c: torch.Tensor, mask: torch.Tensor, cap: int
     # one expression on every call, cheapest first; the worded checks only
     # where it fails
     dev = c.get_device()
-    if not (c.dtype == torch.float32 and mask.dtype == torch.bool
+    width = c.element_size()
+    if not (width in WIDTHS and mask.dtype == torch.bool
             and c.dim() == 2 and mask.shape == c.shape
             and mask.get_device() == dev and 0 <= cap < 2**31
             and c.numel() < 2**31 and c.is_contiguous()
@@ -192,7 +201,8 @@ def extract_roll(c: torch.Tensor, mask: torch.Tensor, cap: int
                      device=c.device)
     err = _build.launch(dev, "spmm_extract_roll", c.data_ptr(),
                         mask.data_ptr(), ws.data_ptr(), indptr.data_ptr(),
-                        col.data_ptr(), vals.data_ptr(), m, n, cap, tile)
+                        col.data_ptr(), vals.data_ptr(), m, n, cap, tile,
+                        width)
     _build.check(err, "extract_roll")
     _build.LAUNCHES["extract_roll"] += 1
     return indptr, col, vals

@@ -8,12 +8,20 @@ host (the structural product) and keeps, on the operands' device:
   * the output structure (indptr, indices) and its extraction plan
     (`kernels/route.compress_plan_from_flat`).
 
-Per call only the values change: `expand_routed` for A and for B, one IEEE
-f32 `torch.matmul` (TF32 off), `compress_routed` with alpha.  No host sync:
+Per call only the values change: `expand_routed` for A and for B, one
+float32 value GEMM in the plan's `precision` (`spgemm._value_matmul`:
+"highest" IEEE, "high" 3xTF32, "default" one TF32 pass),
+`compress_routed` with alpha.  No host sync:
 the output CSR is built with the constructor, which checks nothing on the
 device.  The dense operands are bitwise those of `spgemm(alg=1)`, and so is
 the structure; the values are the same GEMM's, so they match alg 1 bitwise
 where the GEMM library picks the same algorithm for both calls.
+
+A plan computes in float32 whatever its operands' dtype, as JAX's does:
+the values of a plan of another dtype (float64, complex, bfloat16) are cast
+to float32 before the densify (a complex value keeps its real part) and a
+call's CSR is cast back to that dtype; `values` and `values_batch` return
+float32, as JAX's.  The values given to a float32 plan must be float32.
 
 The JAX `interpret` argument is a Pallas switch and is dropped.  The JAX
 plans fall back to an XLA scatter and gather where a routing table does
@@ -32,7 +40,7 @@ from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels.route import (
     compress_plan_from_flat, densify_routed, expand_route_plan,
     extract_routed)
-from spmm_tpu_torch.ops.spgemm import _check_precision, _ieee_fp32_matmul
+from spmm_tpu_torch.ops.spgemm import _check_precision, _value_matmul
 
 
 def _structural_product(a, b) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -88,6 +96,9 @@ class SpgemmPlan:
         dev = a.device
         self.shape = (m, n)
         self.dtype = a.data.dtype
+        self.precision = precision
+        # JAX computes every plan in float32 (module docstring)
+        self._cast = (a.dtype != torch.float32 or b.dtype != torch.float32)
         self.nnz_a = int(a.nnz)
         self.nnz_b = int(b.nnz)
 
@@ -104,17 +115,21 @@ class SpgemmPlan:
         self.routed = (True, True, self._pc is not None)
 
     def _product(self, a_data, b_data, ad=None, bd=None, c=None):
-        """Dense alpha-free product A @ B of the given values; `ad`, `bd`
-        and `c` are optional workspaces to write into."""
+        """Dense alpha-free float32 product A @ B of the given values;
+        `ad`, `bd` and `c` are optional workspaces to write into."""
+        if self._cast:
+            a_data, b_data = a_data.to(torch.float32), b_data.to(
+                torch.float32)
         ad = densify_routed(a_data, self._pa, emit_pattern=False, out=ad)
         bd = densify_routed(b_data, self._pb, emit_pattern=False, out=bd)
-        with _ieee_fp32_matmul():
-            return torch.matmul(ad, bd, out=c)
+        return _value_matmul(ad, bd, self.precision, out=c)
 
     def __call__(self, a_data, b_data, alpha=1.0):
         from spmm_tpu_torch.sparse.csr import CSR
 
         vals = self.values(a_data, b_data, alpha)
+        if self._cast:
+            vals = vals.to(self.dtype)
         return CSR._wrap(self.indptr, self.indices, vals, self.shape,
                          canonical=True)
 
@@ -131,13 +146,29 @@ class SpgemmPlan:
         """C_vals <- beta * C_vals + alpha * (A @ B) over the planned
         structure, written into `c_vals` in place and returned: one
         persistent C buffer across repeated numeric phases (the JAX
-        package donates the buffer to the same end)."""
+        package donates the buffer to the same end).
+
+        The result has JAX's dtype, that of float32 beta times `c_vals`
+        plus the float32 product: `c_vals`' own for float32, float64 and
+        complex (in place), float32 for bfloat16 and float16, returned as
+        a new tensor (JAX cannot alias that output onto the buffer
+        either)."""
         self._check_sizes(a_data, b_data)
         if c_vals.shape[0] != self.nnz:
             raise ValueError(
                 f"c_vals size {c_vals.shape[0]} != planned nnz {self.nnz}")
+        narrow = torch.promote_types(torch.float32,
+                                     c_vals.dtype) != c_vals.dtype
         if self._pc is None:
-            return c_vals
+            return c_vals.to(torch.float32) if narrow else c_vals
+        if narrow:
+            return extract_routed(self._product(a_data, b_data), self._pc,
+                                  alpha, c_prev=c_vals.to(torch.float32),
+                                  beta=beta)
+        if c_vals.dtype != torch.float32:
+            vals = extract_routed(self._product(a_data, b_data), self._pc,
+                                  alpha)
+            return c_vals.mul_(prim.f32(beta)).add_(vals)
         return extract_routed(self._product(a_data, b_data), self._pc,
                               alpha, c_prev=c_vals, beta=beta, out=c_vals)
 
@@ -200,8 +231,4 @@ def spgemm_plan(a, b, precision: str = "highest",
     if a.device != b.device:
         raise ValueError(f"operands on different devices: {a.device} and "
                          f"{b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise NotImplementedError(
-            f"spgemm_plan of {a.dtype} @ {b.dtype}: only float32 is ported "
-            "yet (ROADMAP §1.2, dtypes)")
     return SpgemmPlan(a, b, precision, use_routed)

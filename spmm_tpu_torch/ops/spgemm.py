@@ -5,11 +5,11 @@ blocked dense alg2/alg3 engines (`ops/spgemm_blocked.py`).
 Port of `spmm_tpu/ops/spgemm.py`, in the same order of operations, so the
 output comes out in the same form.  alg1:
 
-  1. densify A and B into f32 values plus bf16 structural 0/1 patterns
-     (kernel `densify_onehot`, `csrc/densify.cu`);
-  2. one f32 value GEMM (TF32 off: `precision="highest"`) and one bf16
-     pattern-count GEMM whose `> 0` is the structural mask, so entries that
-     cancel numerically stay in the output, as in cuSPARSE and scipy's
+  1. densify A and B into values plus bf16 structural 0/1 patterns
+     (kernel `densify_onehot`, `csrc/densify.cu`, at every element width);
+  2. one value GEMM (`_value_matmul`, in the `precision` asked for) and one
+     bf16 pattern-count GEMM whose `> 0` is the structural mask, so entries
+     that cancel numerically stay in the output, as in cuSPARSE and scipy's
      structure;
   3. read nnz on the host (the `spMatGetSize` analogue), then compact the
      dense product into CSR in row-major order (kernel `extract_roll`,
@@ -18,13 +18,40 @@ output comes out in the same form.  alg1:
 ESC (alg2, and alg3 over row chunks of about `chunk_fraction` of the
 products each): expand every partial product a_ik * b_kj in A-entry then
 B-row order, stable-lexsort by (row, col), sum each run with the fixed
-doubling tree (`_primitives.segsum_tree`).  Every product is one f32
-multiply and the tree is the JAX package's, so the values are bitwise those
+doubling tree (`_primitives.segsum_tree`).  Every product is one multiply
+in the operands' dtype and the tree is the JAX package's, so the values
+are bitwise those
 of `spmm_tpu` (and of `native/spgemm_cross_check.cpp`), on every device, for
-every chunk fraction.  ESC has no Pallas kernel; it is plain PyTorch here as
+every chunk fraction; a float64 product and tree give JAX's float64 bits
+on the CPU too.  ESC has no Pallas kernel; it is plain PyTorch here as
 it is plain JAX there.  `spgemm` sends alg2/alg3 to the blocked dense
 engines where A and B dense panels fit the budget (`_blocked_feasible`) and
 to ESC elsewhere, as the JAX package does.
+
+Dtypes are JAX's: float32, float64, complex64, complex128 and bfloat16,
+each computed in its own type (the GEMM is cuBLAS's SGEMM, DGEMM, CGEMM,
+ZGEMM or a bf16 GEMM with a bf16 output, as JAX's
+`preferred_element_type=a.dtype`); operands of two dtypes are promoted to
+their common type first, and alpha is rounded to A's dtype, as in JAX.
+
+Precision modes of the float32 value GEMM (JAX's `jax.lax.Precision`):
+"highest" is IEEE float32 (TF32 off); "default" one TF32 pass; "high" the
+3xTF32 split: each operand split into a big part (rounded to TF32, its low
+13 mantissa bits clear) and a small part (the remainder, rounded the same
+way), then big·small + small·big + big·big as three TF32 GEMMs, the two
+small terms added first, as `csrc/bsr_spmm.cu` splits on the tensor cores.
+TF32 is set only inside a context that restores the global setting.
+On the CPU torch has no TF32, so every mode is IEEE float32, as JAX's CPU
+backend computes every mode.  The other dtypes ignore the mode (complex64
+runs with TF32 off).  The pattern-count GEMM is bf16 in every mode, and
+exact.
+
+How close "high" comes depends on the operands: the three GEMMs keep
+cuBLAS's long accumulate, with no fresh accumulator every 8 of K as
+`csrc/bsr_spmm.cu` starts.  It holds the 1e-6 gate (rtol 1e-6 + atol
+1e-6 max|C|) on the SpGEMM cells' operands, U[0,1) values at most 10 %
+dense, but not on dense N(0,1) operands at K = 1024, where it measured
+1.66x the gate (PERF.md, sections 6 and 7).
 
 The GEMMs are `torch.matmul`, as the JAX package leaves them to XLA.  The
 JAX marker trick (`_TINY`, `_densify_marked`, `_tiny_collision`,
@@ -50,46 +77,99 @@ INDEX_DTYPE = prim.INDEX_DTYPE
 _DENSE_BUDGET_BYTES = int(2e9)
 
 
+PRECISIONS = ("highest", "high", "default")
+
+
 @contextlib.contextmanager
-def _ieee_fp32_matmul():
-    """f32 matmuls in full IEEE f32 (no TF32) inside the block; the global
-    setting is restored after."""
+def _fp32_matmul(mode: str):
+    """float32 (and complex64) matmuls on the card in `mode`, "ieee" or
+    "tf32", inside the block; the global setting is restored after.  The
+    value GEMMs set it through `_value_matmul`."""
     mm = torch.backends.cuda.matmul
     old = mm.fp32_precision
-    mm.fp32_precision = "ieee"
+    mm.fp32_precision = mode
     try:
         yield
     finally:
         mm.fp32_precision = old
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero), as float32
+    with the low 13 mantissa bits clear."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) with big + small = x to 22 bits: big is x rounded to
+    TF32, small the remainder (exact in float32) rounded to TF32, so a TF32
+    GEMM reads both as they are."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, out=None
+                  ) -> torch.Tensor:
+    """a @ b (float32, 2-D) as big·small + small·big + big·big of the
+    `tf32_split` parts, the two small terms added first: three GEMMs whose
+    operands are TF32 values, so a TF32 GEMM reads them exactly.  On the
+    card `_value_matmul` runs it with TF32 on; on the CPU its IEEE GEMMs of
+    the same operands emulate that arithmetic (the tests' float32
+    emulation)."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    c = torch.matmul(a_big, b_small, out=out)
+    c.addmm_(a_small, b_big)
+    return c.addmm_(a_big, b_big)
+
+
+def _value_matmul(a: torch.Tensor, b: torch.Tensor,
+                  precision: str = "highest", out=None) -> torch.Tensor:
+    """The value GEMM a @ b (one dtype; 2-D, or 3-D as a batch) in
+    `precision` (module docstring): on the card, float32 "default" is one
+    TF32 pass and "high" the 3xTF32 split (2-D only); everything else is
+    one GEMM with TF32 off, which every other dtype takes in every mode.
+    On the CPU every mode is one plain GEMM."""
+    if a.device.type != "cuda":
+        return torch.matmul(a, b, out=out)
+    if a.dtype == torch.float32 and precision == "default":
+        with _fp32_matmul("tf32"):
+            return torch.matmul(a, b, out=out)
+    if a.dtype == torch.float32 and precision == "high":
+        with _fp32_matmul("tf32"):
+            return tf32x3_matmul(a, b, out)
+    with _fp32_matmul("ieee"):
+        return torch.matmul(a, b, out=out)
+
+
 def _alg1_dense_compute(a, b, alpha, precision: str = "highest"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense value and structural-pattern products; returns (alpha*C, mask,
-    nnz) with nnz a 0-d int64 tensor on the operands' device."""
+    nnz) with nnz a 0-d int64 tensor on the operands' device.  A and B hold
+    one dtype."""
     _check_precision(precision)
     m, k = a.shape
     n = b.shape[1]
     ad, a_pat = densify_onehot(a.indptr, a.indices, a.data, m, k)
     bd, b_pat = densify_onehot(b.indptr, b.indices, b.data, k, n)
-    with _ieee_fp32_matmul():
-        c = torch.matmul(ad, bd)
+    c = _value_matmul(ad, bd, precision)
+    del ad, bd
     # bf16 0/1 terms: every partial sum is a positive count or 0, so
     # `> 0` is exact even where the bf16 GEMM rounds its sums or reduces
     # in reduced precision (allow_bf16_reduced_precision_reduction)
     counts = torch.matmul(a_pat, b_pat)
     mask = counts > 0
     nnz = mask.sum()
+    alpha = prim.scalar_as(alpha, c.dtype)
     if alpha != 1:
         c.mul_(alpha)
     return c, mask, nnz
 
 
 def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet; only 'highest' "
-            "(IEEE f32) is (ROADMAP §1.2, precision modes)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (expected one of "
+                         f"{PRECISIONS})")
 
 
 def _dense_extract(c, mask, nnz: int):
@@ -118,7 +198,9 @@ def _alg1_fixed(a, b, alpha, cap: int, precision: str = "highest"):
     return torch.clamp(indptr, max=cap), col, data, nnz
 
 
-def _check_operands(a, b) -> None:
+def _check_operands(a, b):
+    """A and B checked, promoted to their common dtype where they differ
+    (as JAX's `jnp.promote_types`, the reference's `_cast_common_type`)."""
     from spmm_tpu_torch.sparse.csr import CSR
 
     if not isinstance(a, CSR) or not isinstance(b, CSR):
@@ -129,10 +211,10 @@ def _check_operands(a, b) -> None:
     if a.device != b.device:
         raise ValueError(f"operands on different devices: {a.device} and "
                          f"{b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise NotImplementedError(
-            f"spgemm of {a.dtype} @ {b.dtype}: only float32 is ported yet "
-            "(ROADMAP §1.2, dtypes)")
+    if a.dtype != b.dtype:
+        common = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.astype(common), b.astype(common)
+    return a, b
 
 
 # ===========================================================================
@@ -274,7 +356,7 @@ def _chunk_extract(row_s, col_s, val_s, alpha, nnz_c: int):
     """(row, col, alpha * sum) of each of the nnz_c runs of sorted
     triplets, each run summed with the fixed doubling tree."""
     r, c, v = prim.sum_duplicates_sorted_tree(row_s, col_s, val_s, nnz_c)
-    return r, c, v * prim.f32(alpha)
+    return r, c, v * prim.scalar_as(alpha, v.dtype)
 
 
 def _alg3_esc_count(a, b, chunk_meta, m: int, n: int) -> torch.Tensor:
@@ -389,7 +471,7 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
     and, where A/B dense panels fit the budget, "auto" run the blocked
     dense engines (`ops/spgemm_blocked.py`) when both operands have
     entries; "esc" and every other case run expand-sort-compress."""
-    _check_operands(a, b)
+    a, b = _check_operands(a, b)
     if alg not in (0, 1, 2, 3):
         raise ValueError(f"unknown alg {alg!r} (expected 0, 1, 2 or 3)")
     if impl not in ("auto", "dense", "esc"):
@@ -430,7 +512,7 @@ def spgemm_fixed(a, b, alpha=1.0, cap: Optional[int] = None,
     smaller than the true nnz."""
     from spmm_tpu_torch.sparse.csr import CSR
 
-    _check_operands(a, b)
+    a, b = _check_operands(a, b)
     _check_precision(precision)
     a = a.sum_duplicates()
     b = b.sum_duplicates()

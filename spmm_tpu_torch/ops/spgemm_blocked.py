@@ -8,7 +8,7 @@ selection rules and constants, so the same inputs take the same engine:
       128-row tile, giving the (m_pad, n) structural mask and the per-tile
       counts; one host readback sizes the output (the `spMatGetSize`
       analogue).  The numeric phase densifies B once (values only) and, per
-      tile, the A tile, runs one IEEE f32 GEMM and compacts the tile under
+      tile, the A tile, runs one value GEMM and compacts the tile under
       its mask slice (kernel `extract_roll`).  Past
       `_ALG2_MAX_UNROLL_TILES` tiles the scan engine densifies A and B
       whole and recounts each tile itself; both give the same bits.
@@ -16,7 +16,7 @@ selection rules and constants, so the same inputs take the same engine:
   alg3 (chunked): nothing is ever fully dense.  B is cut into column
       panels of width n_b (from `chunk_fraction`, clamped to [1e-3, 1]) and
       A into 128-row tiles; every (tile, panel) block runs the same step,
-      `_block`: densify the A tile (values and pattern), one f32 value GEMM
+      `_block`: densify the A tile (values and pattern), one value GEMM
       and one bf16 count GEMM against the densified panel, and the mask.
       Four engines assemble the blocks into CSR and differ in nothing else,
       so they agree bitwise: `group` (G tiles staged as full-width value
@@ -27,12 +27,13 @@ selection rules and constants, so the same inputs take the same engine:
       three take the output structure from the host structural product, as
       JAX does.
 
-The GEMMs are `torch.matmul` (JAX: `jnp.dot`); the sorts are stable
-`torch.sort` (JAX: `lax.sort`).  JAX's densify helpers (`_densify_pair`,
+The value GEMMs are `spgemm._value_matmul` in the `precision` asked for
+(JAX: `jnp.dot(..., precision=)`), in the operands' dtype; the sorts are
+stable `torch.sort` (JAX: `lax.sort`).  JAX's densify helpers (`_densify_pair`,
 `_densify_pattern`, `_pattern_dense`, `_value_dense`) are the kernel
 wrappers `densify_onehot` and `densify_onehot_pattern`, which run their
-plain versions on CPU tensors; alpha is folded into each write as one
-float32 multiply, as JAX folds it.  Sizes that steer the Python loops are read
+plain versions on CPU tensors; alpha, rounded to A's dtype, is folded into
+each write as one multiply, as JAX folds it.  Sizes that steer the Python loops are read
 on the host once per call, so the host syncs of a call do not grow with
 the number of tiles T or panels P.  Every block's workspace is dropped
 before the next block, so the peak holds one block's workspace.
@@ -60,7 +61,7 @@ from spmm_tpu_torch.ops.kernels.densify_onehot import (densify_onehot,
                                                        densify_onehot_pattern)
 from spmm_tpu_torch.ops.kernels.extract_roll import extract_roll
 from spmm_tpu_torch.ops.serving import _structural_product
-from spmm_tpu_torch.ops.spgemm import _empty_csr, _ieee_fp32_matmul
+from spmm_tpu_torch.ops.spgemm import _empty_csr, _value_matmul
 
 INDEX_DTYPE = prim.INDEX_DTYPE
 TILE = 128
@@ -139,7 +140,8 @@ def _indptr_from_rowc(rowc: torch.Tensor) -> torch.Tensor:
 
 def _alg2_compute_unrolled(a_indptr_pad, a_indptr_pad_h, a_indices, a_data,
                            b_indptr, b_indices, b_data, mask, alpha, m: int,
-                           k: int, n: int, T: int, nnz: int, tile_caps):
+                           k: int, n: int, T: int, nnz: int, tile_caps,
+                           precision: str = "highest"):
     """Numeric phase for T <= _ALG2_MAX_UNROLL_TILES: A is never fully
     dense.  B is densified once (values only); each tile densifies its A
     rows (values only), multiplies the dense B, compacts under its slice of
@@ -156,8 +158,7 @@ def _alg2_compute_unrolled(a_indptr_pad, a_indptr_pad_h, a_indices, a_data,
         if tile is None or cap_t == 0:
             continue
         ad, _ = densify_onehot(*tile, TILE, k, with_pattern=False)
-        with _ieee_fp32_matmul():
-            ct = torch.matmul(ad, bd)
+        ct = _value_matmul(ad, bd, precision)
         del ad
         _, cols_t, vals_t = extract_roll(ct, mask[t * TILE:(t + 1) * TILE],
                                          cap_t)
@@ -171,7 +172,8 @@ def _alg2_compute_unrolled(a_indptr_pad, a_indptr_pad_h, a_indices, a_data,
 
 def _alg2_compute(a_indptr_pad, a_indices, a_data, b_indptr, b_indices,
                   b_data, alpha, tilec_h, m: int, m_pad: int, k: int, n: int,
-                  T: int, cap_tile: int, nnz: int):
+                  T: int, cap_tile: int, nnz: int,
+                  precision: str = "highest"):
     """Scan-engine numeric phase (T > _ALG2_MAX_UNROLL_TILES): A and B
     densified whole (values and patterns); each tile recounts its own
     structure, compacts cap_tile slots and writes them at its running
@@ -188,8 +190,7 @@ def _alg2_compute(a_indptr_pad, a_indices, a_data, b_indptr, b_indices,
         if not tilec_h[t]:
             continue  # nothing to write; later tiles cover the slots
         rows = slice(t * TILE, (t + 1) * TILE)
-        with _ieee_fp32_matmul():
-            ct = torch.matmul(ad[rows], bd)
+        ct = _value_matmul(ad[rows], bd, precision)
         mask = torch.matmul(a_pat[rows], b_pat) > 0
         _, cols_t, vals_t = extract_roll(ct, mask, cap_tile)
         o = int(offs[t])
@@ -205,10 +206,9 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
     """Balanced blocked SpGEMM; see the module docstring."""
     from spmm_tpu_torch.sparse.csr import CSR
 
-    del precision  # checked by `spgemm`: only "highest" is ported
     m, k = a.shape
     n = b.shape[1]
-    alpha = prim.f32(alpha)
+    alpha = prim.scalar_as(alpha, a.dtype)
     m_pad = _round_up(max(m, 1), TILE)
     T = m_pad // TILE
     (a_indptr_h,) = prim.to_host(a.indptr)
@@ -227,7 +227,7 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
         indptr, cols, vals = _alg2_compute_unrolled(
             a_indptr, a_indptr_h, a.indices, a.data, b.indptr, b.indices,
             b.data, mask, alpha, m, k, n, T, nnz,
-            [int(c) for c in tilec_h])
+            [int(c) for c in tilec_h], precision)
         return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
     del mask  # the scan engine recounts each tile
     cap_tile = _round_up(int(tilec_h.max()), 8)
@@ -235,7 +235,7 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
         print(f"[spgemm alg2/blocked] T={T} cap_tile={cap_tile} nnz={nnz}")
     indptr, cols, vals = _alg2_compute(
         a_indptr, a.indices, a.data, b.indptr, b.indices, b.data, alpha,
-        tilec_h, m, m_pad, k, n, T, cap_tile, nnz)
+        tilec_h, m, m_pad, k, n, T, cap_tile, nnz, precision)
     return CSR._wrap(indptr, cols, vals, (m, n), canonical=True)
 
 
@@ -252,10 +252,12 @@ class _Blocks:
     the values; the panels' indptrs and local columns are built on the host
     and sent in one copy."""
 
-    def __init__(self, a, b, host, n_b: int, P: int, m_pad: int):
+    def __init__(self, a, b, host, n_b: int, P: int, m_pad: int,
+                 precision: str = "highest"):
         ai, _, bi, bj = host
         k = b.shape[0]
         self.a, self.k, self.n_b = a, k, n_b
+        self.precision = precision
         self.a_indptr_h = _pad_indptr_h(ai, m_pad)
         self.a_indptr = _pad_indptr(a.indptr, m_pad)
         b_rows = np.repeat(np.arange(k, dtype=np.int64), np.diff(bi))
@@ -285,20 +287,20 @@ class _Blocks:
         return self.b_indptr[p], self.b_lcol[b0:b1], self.b_vals[b0:b1]
 
     def panel(self, p: int):
-        """Panel p densified, (k, n_b) f32 values and bf16 pattern, or
-        None when it is empty."""
+        """Panel p densified, (k, n_b) values and bf16 pattern, or None
+        when it is empty."""
         csr = self.panel_csr(p)
         return None if csr is None else densify_onehot(*csr, self.k, self.n_b)
 
 
-def _block(tile, panel, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _block(tile, panel, k: int, precision: str = "highest"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step every alg3 engine runs per (tile, panel) block: densify the
-    A tile (values and pattern), one IEEE f32 value GEMM and one bf16 count
-    GEMM against the densified panel; (ct (TILE, n_b) f32, mask bool)."""
+    A tile (values and pattern), one value GEMM in `precision` and one bf16
+    count GEMM against the densified panel; (ct (TILE, n_b), mask bool)."""
     ad, a_pat = densify_onehot(*tile, TILE, k)
     bd, b_pat = panel
-    with _ieee_fp32_matmul():
-        ct = torch.matmul(ad, bd)
+    ct = _value_matmul(ad, bd, precision)
     return ct, torch.matmul(a_pat, b_pat) > 0
 
 
@@ -373,7 +375,7 @@ def _alg3_compute_group(blocks: _Blocks, alpha, n: int, n_b: int, T: int,
                 tile = blocks.tile(g0 + ti)
                 if tile is None or tile_caps[g0 + ti] == 0:
                     continue
-                ct, mask = _block(tile, panel, k)
+                ct, mask = _block(tile, panel, k, blocks.precision)
                 rows = slice(ti * TILE, (ti + 1) * TILE)
                 stage_v[rows, c0:c0 + w] = ct[:, :w]
                 stage_m[rows, c0:c0 + w] = mask[:, :w]
@@ -394,7 +396,8 @@ def _alg3_compute_group(blocks: _Blocks, alpha, n: int, n_b: int, T: int,
 
 
 def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
-                       m_pad: int, verbose: bool):
+                       m_pad: int, verbose: bool,
+                       precision: str = "highest"):
     from spmm_tpu_torch.sparse.csr import CSR
 
     m = a.shape[0]
@@ -411,7 +414,7 @@ def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
     if verbose:
         print(f"[spgemm alg3/blocked] group T={T} P={P} n_b={n_b} G={G} "
               f"nnz={nnz}")
-    blocks = _Blocks(a, b, host, n_b, P, m_pad)
+    blocks = _Blocks(a, b, host, n_b, P, m_pad, precision)
     vals = _alg3_compute_group(blocks, alpha, n, n_b, T, P, G, nnz,
                                tile_caps)
     indptr, indices = prim.to_device(a.device, indptr_h, indices_h)
@@ -440,7 +443,7 @@ def _alg3_compute_unrolled(blocks: _Blocks, blockc, alpha, n: int, n_b: int,
             tile = blocks.tile(t)
             if tile is None or blockc[p, t] == 0:
                 continue
-            ct, mask = _block(tile, panel, k)
+            ct, mask = _block(tile, panel, k, blocks.precision)
             row, col, val = _compact(ct, mask, cap_blk)
             del ct, mask
             key = torch.where(row < TILE, row * n + col + p * n_b, big)
@@ -468,7 +471,8 @@ def _alg3_compute_unrolled(blocks: _Blocks, blockc, alpha, n: int, n_b: int,
 
 
 def _spgemm_alg3_unrolled(a, b, host, alpha, n_b: int, P: int, T: int,
-                          m_pad: int, verbose: bool):
+                          m_pad: int, verbose: bool,
+                          precision: str = "highest"):
     from spmm_tpu_torch.sparse.csr import CSR
 
     m = a.shape[0]
@@ -482,7 +486,7 @@ def _spgemm_alg3_unrolled(a, b, host, alpha, n_b: int, P: int, T: int,
     if verbose:
         print(f"[spgemm alg3/blocked] unrolled T={T} P={P} n_b={n_b} "
               f"cap_blk={cap_blk} cap_tile={cap_tile} nnz={nnz}")
-    blocks = _Blocks(a, b, host, n_b, P, m_pad)
+    blocks = _Blocks(a, b, host, n_b, P, m_pad, precision)
     cols, vals = _alg3_compute_unrolled(blocks, blockc, alpha, n, n_b, T, P,
                                         cap_blk, nnz)
     (indptr,) = prim.to_device(a.device, indptr_h)
@@ -511,7 +515,7 @@ def _alg3_compute_scan3(blocks: _Blocks, blockc, prod_off, gather, alpha,
             tile = blocks.tile(t)
             if tile is None or blockc[p, t] == 0:
                 continue
-            ct, mask = _block(tile, panel, k)
+            ct, mask = _block(tile, panel, k, blocks.precision)
             _, _, val = extract_roll(ct, mask, cap_blk)
             del ct, mask
             o = int(prod_off[p, t])
@@ -522,7 +526,8 @@ def _alg3_compute_scan3(blocks: _Blocks, blockc, prod_off, gather, alpha,
 
 
 def _spgemm_alg3_scan3(a, b, host, alpha, n_b: int, P: int, T: int,
-                       m_pad: int, verbose: bool):
+                       m_pad: int, verbose: bool,
+                       precision: str = "highest"):
     from spmm_tpu_torch.sparse.csr import CSR
 
     m = a.shape[0]
@@ -543,7 +548,7 @@ def _spgemm_alg3_scan3(a, b, host, alpha, n_b: int, P: int, T: int,
     if verbose:
         print(f"[spgemm alg3/blocked] scan3 T={T} P={P} n_b={n_b} "
               f"cap_blk={cap_blk} nnz={nnz}")
-    blocks = _Blocks(a, b, host, n_b, P, m_pad)
+    blocks = _Blocks(a, b, host, n_b, P, m_pad, precision)
     indptr, indices, gather_d = prim.to_device(a.device, indptr_h, indices_h,
                                                gather)
     vals = _alg3_compute_scan3(blocks, blockc, prod_off, gather_d, alpha, T,
@@ -635,7 +640,7 @@ def _alg3_compute(blocks: _Blocks, rowc, blockc_h, alpha, m: int, n: int,
             tile = blocks.tile(t)
             if tile is None or nb == 0:
                 continue
-            ct, mask = _block(tile, panel, k)
+            ct, mask = _block(tile, panel, k, blocks.precision)
             row, col, val = _compact(ct, mask, cap_blk)
             del ct, mask
             o = int(prod_off[t * P + p])
@@ -657,7 +662,8 @@ def _alg3_compute(blocks: _Blocks, rowc, blockc_h, alpha, m: int, n: int,
 
 
 def _spgemm_alg3_scan2(a, b, host, alpha, n_b: int, P: int, T: int,
-                       m_pad: int, n_pad: int, verbose: bool):
+                       m_pad: int, n_pad: int, verbose: bool,
+                       precision: str = "highest"):
     from spmm_tpu_torch.sparse.csr import CSR
 
     m, k = a.shape
@@ -672,7 +678,7 @@ def _spgemm_alg3_scan2(a, b, host, alpha, n_b: int, P: int, T: int,
         Eb = max(_round_up(int(b_counts.max()), 8), 8)
         print(f"[spgemm alg3/blocked] T={T} P={P} n_b={n_b} Ea={Ea} "
               f"Eb={Eb}")
-    blocks = _Blocks(a, b, host, n_b, P, m_pad)
+    blocks = _Blocks(a, b, host, n_b, P, m_pad, precision)
     if 2 * k * n_pad <= _FAST_COUNT_BUDGET:
         rowc, blockc = _alg3_count_fast(blocks, b.indptr, b.indices, n_b, T,
                                         P)
@@ -733,10 +739,9 @@ def spgemm_alg3_blocked(a, b, alpha, chunk_fraction: float,
     `engine` forces one of "group", "unrolled", "scan3", "scan2"; the
     legacy `unroll` maps True to "unrolled" and False to the scan family.
     The four engines give bitwise-equal outputs."""
-    del precision  # checked by `spgemm`: only "highest" is ported
     m = a.shape[0]
     n = b.shape[1]
-    alpha = prim.f32(alpha)
+    alpha = prim.scalar_as(alpha, a.dtype)
     n_b, P, n_pad, m_pad, T = _alg3_grid(m, n, chunk_fraction)
     if engine is None:
         engine = {True: "unrolled", False: None}.get(unroll)
@@ -750,7 +755,7 @@ def spgemm_alg3_blocked(a, b, alpha, chunk_fraction: float,
         engine = select_alg3_engine(a.nnz, b.nnz, products, T, P, n_pad)
     if engine == "scan2":
         return _spgemm_alg3_scan2(a, b, host, alpha, n_b, P, T, m_pad,
-                                  n_pad, verbose)
+                                  n_pad, verbose, precision)
     run = {"group": _spgemm_alg3_group, "unrolled": _spgemm_alg3_unrolled,
            "scan3": _spgemm_alg3_scan3}[engine]
-    return run(a, b, host, alpha, n_b, P, T, m_pad, verbose)
+    return run(a, b, host, alpha, n_b, P, T, m_pad, verbose, precision)

@@ -20,8 +20,17 @@ Port of `spmm_tpu/ops/spmm.py`.  Paths:
 `transa` transposes A first (a CSR by a stable sort, `CSR.transpose`, so
 the transposed product has no atomics either; a BSR through CSR, to blocks
 of (C, R)).  B is row-major; a non-contiguous tensor (such as `X.T`) is
-copied contiguous first.  `alpha` multiplies the result after the sum.
-Only float32 is ported (ROADMAP §1.3).
+copied contiguous first.  `alpha`, rounded to A's dtype, multiplies the
+result after the sum.
+
+Dtypes are JAX's: A and B are promoted to their common type (a host B
+converts as `spmv`'s x does).  Where that is float32 the paths above run.
+For every other type, `via="csr"` takes JAX's `_csr_spmm`, `B[col] *
+data` added row by row in stored order (`spmv.csr_gather_sum`), `"dense"`
+one `torch.matmul` in that type and `"bsr"` `bsr_spmm_plain` in that type
+(JAX's `_bsr_spmm`).  `"bsr_pallas"` launches `bsr_spmm` in the blocks'
+dtype, as the TPU kernel computes in it: bfloat16, float64 and int32 on
+the kernel's FMA path; a complex dtype raises, as JAX's kernel does.
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ import torch
 from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_plain, spmm_bsr
 from spmm_tpu_torch.ops.kernels.spmv_routed import (spmm_routed,
                                                     spmv_routed_plan)
-from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
-from spmm_tpu_torch.ops.spmv import _check_sparse, _densify, _scale, as_dense
+from spmm_tpu_torch.ops.spgemm import _value_matmul
+from spmm_tpu_torch.ops.spmv import (_check_sparse, _densify, _scale,
+                                     as_dense, csr_gather_sum, promote)
 
 
 def _csr_spmm(a, b: torch.Tensor) -> torch.Tensor:
@@ -43,8 +53,7 @@ def _csr_spmm(a, b: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_spmm(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    with _ieee_fp32_matmul():
-        return torch.matmul(a_dense, b)
+    return _value_matmul(a_dense, b)
 
 
 def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
@@ -63,16 +72,21 @@ def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
         a = a.transpose()
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"dimension mismatch: {a.shape} @ {tuple(b.shape)}")
+    a_dtype = a.dtype
+    a, b = promote(a, b)
     if (plan is not None and isinstance(plan, tuple) and len(plan) == 2
             and plan[0] == "routed" and not transa):
-        return _scale(spmm_routed(b, plan[1]), alpha)
+        return _scale(spmm_routed(b, plan[1]), alpha, a_dtype)
     if via == "dense":
         return _scale(_dense_spmm(_densify(a.tocsr().sum_duplicates()), b),
-                      alpha)
+                      alpha, a_dtype)
     if via in ("bsr", "bsr_pallas") or isinstance(a, BSR):
         ab = a if isinstance(a, BSR) else a.tobsr()
         if via == "bsr_pallas":
-            return _scale(spmm_bsr(ab, b), alpha)
+            return _scale(spmm_bsr(ab, b), alpha, a_dtype)
         return _scale(bsr_spmm_plain(ab.indptr, ab.indices, ab.data, b,
-                                     a.shape[0]), alpha)
-    return _scale(_csr_spmm(a.tocsr().sum_duplicates(), b), alpha)
+                                     a.shape[0]), alpha, a_dtype)
+    a = a.tocsr().sum_duplicates()
+    if a.dtype != torch.float32:
+        return _scale(csr_gather_sum(a, b), alpha, a_dtype)
+    return _scale(_csr_spmm(a, b), alpha, a_dtype)

@@ -14,9 +14,16 @@ CPU tensor runs):
   * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`
     with TF32 off.
 
-`alpha` multiplies the result after the sum, as in the JAX package.  Only
-float32 is ported (ROADMAP §1.3); other dtypes raise NotImplementedError.
-Every card path is deterministic, bitwise on rerun.
+`alpha`, rounded to A's dtype as JAX rounds it, multiplies the result after
+the sum, as in the JAX package.  Dtypes are JAX's: the product is computed
+in the common type of A and x (`torch.promote_types`, as JAX's promotion);
+where that is float32 (float32, an int32 or bfloat16 A with a float32 x)
+the float32 kernels above run, and for every other type (float64,
+complex64, complex128, bfloat16, an int32 A with an int32 x) JAX's
+gather-and-segment-sum path, `data * x[indices]` added row by row in
+stored order from 0 by `segment_sum_inorder` (`csrc/segment_sum.cu` on the
+card, JAX's bits on the CPU), as JAX gives every non-float32 matrix a plan
+of None.  Every card path is deterministic, bitwise on rerun.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels.densify_onehot import densify_onehot
 from spmm_tpu_torch.ops.kernels.spmv_binned import (spmv_binned,
                                                     spmv_binned_plan)
@@ -31,47 +39,65 @@ from spmm_tpu_torch.ops.kernels.spmv_onehot import (spmv_onehot,
                                                     spmv_onehot_plan)
 from spmm_tpu_torch.ops.kernels.spmv_routed import (spmv_routed,
                                                     spmv_routed_plan)
-from spmm_tpu_torch.ops.spgemm import _ieee_fp32_matmul
+from spmm_tpu_torch.ops.spgemm import _value_matmul
 
 _TAGS = ("routed", "binned", "onehot")
 
 
-def _check_matrix(a, what: str):
-    """A as a CSR of float32 values."""
-    return _check_sparse(a, what).tocsr()
+_WIDE = (torch.float64, torch.complex128)
 
 
 def _check_sparse(a, what: str):
-    """A, a sparse matrix of any format holding float32 values."""
+    """A, a sparse matrix of any format."""
     from spmm_tpu_torch.sparse.base import issparse
 
     if not issparse(a):
         raise TypeError(f"{what} expects a sparse matrix A")
-    if a.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} of a {a.dtype} matrix: only float32 is ported yet "
-            "(ROADMAP §1.3, dtypes)")
     return a
 
 
 def as_dense(x, a, what: str) -> torch.Tensor:
-    """x as a float32 tensor on A's device.  A host array is converted (as
-    `jnp.asarray` does with x64 off); a tensor must already be float32 and
-    on A's device, and a non-contiguous one is copied contiguous."""
+    """x as a tensor on A's device.  A host array converts as `jnp.asarray`
+    does: with x64 on where A holds a 64-bit type (float64, complex128),
+    as JAX with x64 enabled holds one, else with x64 off (float64 to
+    float32, int64 to int32, complex128 to complex64); a tensor keeps its
+    dtype, must lie on A's device, and is copied contiguous where it is
+    not."""
+    from spmm_tpu_torch.sparse.base import as_data
+
     if isinstance(x, torch.Tensor):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{what} with a {x.dtype} operand: only float32 is ported "
-                "yet (ROADMAP §1.3, dtypes)")
         if x.device != a.device:
             raise ValueError(f"{what}: the dense operand is on {x.device}, "
                              f"A on {a.device}")
         return x.contiguous()
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=a.device)
+    if a.dtype in _WIDE:
+        return torch.as_tensor(np.asarray(x), device=a.device)
+    return as_data(x, None, a.device)
 
 
-def _scale(y: torch.Tensor, alpha) -> torch.Tensor:
+def promote(a, x: torch.Tensor):
+    """(A, x) in their common dtype, as JAX promotes `data * x`."""
+    dtype = torch.promote_types(a.dtype, x.dtype)
+    return (a if a.dtype == dtype else a.astype(dtype)), x.to(dtype)
+
+
+def _scale(y: torch.Tensor, alpha, dtype) -> torch.Tensor:
+    """alpha * y, alpha rounded to A's `dtype` first (JAX's
+    `jnp.asarray(alpha, a.dtype)`)."""
+    alpha = prim.scalar_as(alpha, dtype)
     return y if alpha == 1 else y.mul_(alpha)
+
+
+def csr_gather_sum(a, x: torch.Tensor) -> torch.Tensor:
+    """A @ x for x (n,) or (n, k) by JAX's non-kernel path: every entry's
+    `data * x[col]`, summed row by row in stored order from 0
+    (`segment_sum_inorder`: JAX's `segment_sum` bits, no atomics)."""
+    ip = a.indptr
+    if x.dim() == 1:
+        prod = a.data * x[a.indices.long()]
+    else:
+        prod = x[a.indices.long()] * a.data[:, None]
+    return prim.segment_sum_inorder(prod, ip[:-1], ip[1:] - ip[:-1])
 
 
 def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
@@ -80,14 +106,8 @@ def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
     return spmv_binned(x, spmv_binned_plan(a.indptr, a.indices, a.data, m, n))
 
 
-def _csr_spmv_t(a, x: torch.Tensor) -> torch.Tensor:
-    """Aᵀ @ x: the CSR of Aᵀ (stable sort on column), then `_csr_spmv`."""
-    return _csr_spmv(a.transpose(), x)
-
-
 def _dense_spmv(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    with _ieee_fp32_matmul():
-        return torch.matmul(a_dense, x)
+    return _value_matmul(a_dense, x)
 
 
 def _densify(a) -> torch.Tensor:
@@ -144,7 +164,7 @@ def spmv(a, x, alpha=1.0, transa: bool = False, via: str = "auto",
     `via="binned"`/`"onehot"` without a plan raise ValueError off the card,
     as the JAX package does off the TPU.
     """
-    a = _check_matrix(a, "spmv")
+    a = _check_sparse(a, "spmv").tocsr()
     x = as_dense(x, a, "spmv")
     if x.dim() != 1:
         raise ValueError("spmv expects a 1-D dense vector x")
@@ -154,9 +174,11 @@ def spmv(a, x, alpha=1.0, transa: bool = False, via: str = "auto",
         raise ValueError(
             f"dimension mismatch: op(A) {a.shape} (transa={transa}) @ x "
             f"{tuple(x.shape)}")
+    a_dtype = a.dtype
+    a, x = promote(a, x)
     if via == "dense":
         ad = _densify(a.sum_duplicates())
-        return _scale(_dense_spmv(ad.T if transa else ad, x), alpha)
+        return _scale(_dense_spmv(ad.T if transa else ad, x), alpha, a_dtype)
     if not transa and via in ("auto", "onehot", "binned"):
         a = a.sum_duplicates()  # the kernels need canonical entries
         if plan is not None and isinstance(plan, tuple) and len(plan) == 2 \
@@ -169,17 +191,19 @@ def spmv(a, x, alpha=1.0, transa: bool = False, via: str = "auto",
         else:
             tag, p = "onehot", spmv_onehot_plans(a)
         if tag == "routed" and p is not None:
-            return _scale(spmv_routed(x, p), alpha)
+            return _scale(spmv_routed(x, p), alpha, a_dtype)
         if tag == "binned" and p is not None:
-            return _scale(spmv_binned(x, p), alpha)
+            return _scale(spmv_binned(x, p), alpha, a_dtype)
         if tag == "onehot" and p is not None:
             return _scale(spmv_onehot(a.indptr, a.indices, a.data, x, m, n,
-                                      p), alpha)
+                                      p), alpha, a_dtype)
         if via in ("onehot", "binned"):
             raise ValueError(f"spmv via={via!r} requested but the kernel "
                              "does not apply (matrix not on a CUDA device, "
                              "non-f32 data, or an empty matrix)")
     a = a.sum_duplicates()
     if transa:
-        return _scale(_csr_spmv_t(a, x), alpha)
-    return _scale(_csr_spmv(a, x), alpha)
+        a = a.transpose()
+    if a.dtype != torch.float32:
+        return _scale(csr_gather_sum(a, x), alpha, a_dtype)
+    return _scale(_csr_spmv(a, x), alpha, a_dtype)

@@ -74,8 +74,12 @@ def as_data(x, dtype, device) -> torch.Tensor:
 
 
 def host(x) -> np.ndarray:
-    """A host numpy copy of a tensor, or `np.asarray` of anything else."""
+    """A host numpy copy of a tensor (bfloat16, which numpy lacks, as its
+    exact float32 values, as JAX's `to_scipy` gives them), or `np.asarray`
+    of anything else."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -230,6 +234,13 @@ class SparseMatrix:
     def __len__(self):
         raise TypeError("sparse matrix length is ambiguous; "
                         "use getnnz() or shape[0]")
+
+    def __iter__(self):
+        """Row iteration, as scipy's: each row a (1, n) CSR; other formats
+        iterate over their CSR."""
+        mat = self if self.format == "csr" else self.tocsr()
+        for i in range(self.shape[0]):
+            yield mat[i]
 
     def reshape(self, *shape, order="C"):
         """A matrix of a 2-D shape with the same element count, each entry

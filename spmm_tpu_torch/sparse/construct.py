@@ -30,9 +30,9 @@ def random(m: int, n: int, density: float = 0.01, format: str = "coo",
 
     `seed` is an int, None, or a `numpy.random.Generator` to draw from."""
     dtype = torch_dtype(dtype)
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"random: dtype must be float32 or float64, got "
-                         f"{dtype}")
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise ValueError(f"random: dtype must be float32, float64 or "
+                         f"bfloat16, got {dtype}")
     if not 0 <= density <= 1:
         raise ValueError("density expected to be 0 <= density <= 1")
     m, n = int(m), int(n)
@@ -40,8 +40,9 @@ def random(m: int, n: int, density: float = 0.01, format: str = "coo",
            else np.random.default_rng(seed))
     k = int(density * m * n)
     flat = np.sort(rng.choice(m * n, size=k, replace=False)).astype(np.int64)
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    data = torch.from_numpy(rng.random(k, dtype=np_dtype))
+    # bfloat16: the float32 draw rounded to nearest, as numpy has no bf16
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    data = torch.from_numpy(rng.random(k, dtype=np_dtype)).to(dtype)
     coo = COO.from_parts(flat // n, flat % n, data, (m, n), canonical=True,
                          device=device)
     return coo.asformat(format)

@@ -5,7 +5,8 @@ tensor (float32 on the SpGEMM/SpMV paths), the static shape and a canonical
 flag (sorted, duplicate-free indices), all three tensors on one device;
 JAX's constructor forms, `sort_indices`, `sum_duplicates` and
 `eliminate_zeros` (through COO, as in JAX), `tocoo`, `tocsc`, `toarray`,
-`transpose`, `getrow` and `diagonal`.  `_Compressed` holds what CSR and CSC
+`transpose`, `getrow`, `getcol`, `diagonal`, `setdiag`, and indexing and
+assignment (`__getitem__`, `__setitem__`: `sparse/indexing.py`).  `_Compressed` holds what CSR and CSC
 share: the constructor forms and the structure checks.
 """
 
@@ -248,14 +249,11 @@ class CSR(_Compressed):
     def getrow(self, i: int) -> "CSR":
         """Row i as a (1, n) CSR (one host read of indptr), as scipy's:
         i truncated as `int()` does, a negative i counted from the end, an
-        index outside [-m, m) an IndexError (JAX's `getrow` returns a
-        corrupt empty row there)."""
-        m = self._shape[0]
-        given = i = int(i)
-        if i < 0:
-            i += m
-        if not 0 <= i < m:
-            raise IndexError(f"row index ({given}) out of range for {m} rows")
+        index outside [-m, m) an IndexError (`indexing.check_int`, the rule
+        of `A[i]`; JAX's `getrow` returns a corrupt empty row there)."""
+        from spmm_tpu_torch.sparse.indexing import check_int
+
+        i = check_int(i, self._shape[0], "row")
         start, end = self.indptr[i:i + 2].tolist()
         indptr = torch.tensor([0, end - start], dtype=INDEX_DTYPE,
                               device=self.device)
@@ -267,6 +265,44 @@ class CSR(_Compressed):
         """Diagonal k, duplicates summed in stored order from 0 as JAX's
         `.at[].add` sums them."""
         return diagonal_of(self.tocoo(), k)
+
+    # -- indexing (sparse/indexing.py) ---------------------------------------
+
+    def __getitem__(self, key):
+        from spmm_tpu_torch.sparse import indexing
+
+        return indexing.csr_getitem(self, key)
+
+    def __setitem__(self, key, value):
+        from spmm_tpu_torch.sparse import indexing
+
+        indexing.csr_setitem(self, key, value)
+
+    def getcol(self, j: int) -> "CSR":
+        """Column j as an (m, 1) CSR; j is taken modulo n, as in JAX."""
+        return self[:, int(j) % self._shape[1]]
+
+    def setdiag(self, values, k: int = 0) -> None:
+        """Write `values` along diagonal k in place, as scipy's `setdiag`: a
+        scalar fills the whole diagonal, an array its first len(values)
+        places (cut to the diagonal's length); k <= -m or k >= n raises
+        ValueError.  Explicit zeros are stored, as in assignment."""
+        from spmm_tpu_torch.sparse import indexing
+
+        m, n = self._shape
+        if k <= -m or k >= n:
+            raise ValueError(f"k ({k}) exceeds matrix dimensions")
+        m_st, n_st = max(0, -k), max(0, k)
+        dlen = min(m - m_st, n - n_st)
+        vals = indexing._values(values, self.dtype, self.device)
+        if vals.dim() == 0:
+            L = dlen
+            vals = vals.expand(L)
+        else:
+            L = min(dlen, vals.shape[0])
+            vals = vals[:L]
+        idx = torch.arange(L, dtype=torch.int64, device=self.device)
+        indexing._assign_entries(self, m_st + idx, n_st + idx, vals)
 
 
 def diagonal_of(coo, k: int) -> torch.Tensor:

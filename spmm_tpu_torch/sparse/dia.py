@@ -60,10 +60,14 @@ class DIA(SparseMatrix):
         self._shape = (int(shape[0]), int(shape[1]))
 
     @classmethod
-    def from_parts(cls, data, offsets, shape) -> "DIA":
-        """DIA of a (ndiag, L) tensor (no copy) and host offsets."""
+    def from_parts(cls, data, offsets, shape, *, device=None) -> "DIA":
+        """DIA of (ndiag, L) values and host offsets.  A tensor stays where
+        it is (no copy) unless `device` is given; a host array goes to the
+        card unless `device` says otherwise (raises where there is none),
+        converted as `jnp.asarray` converts it (float64 to float32, as with
+        x64 off)."""
         obj = cls.__new__(cls)
-        obj.data = data
+        obj.data = as_data(data, None, resolve_device(device, data))
         obj._offsets = tuple(int(o) for o in offsets)
         obj._shape = (int(shape[0]), int(shape[1]))
         return obj

@@ -435,7 +435,12 @@ def test_blocked_operand_checks_still_apply(ops):
     _, a, _, b = ops["nonsquare"]
     with pytest.raises(ValueError, match="unknown impl"):
         pt.spgemm(a, b, alg=2, impl="hash")
-    with pytest.raises(NotImplementedError, match="precision"):
-        pt.spgemm(a, b, alg=3, impl="dense", precision="high")
+    # "high" computes now, as in JAX (IEEE float32 on the CPU in both)
+    a_ref, _, b_ref, _ = ops["nonsquare"]
+    assert_csr_match(
+        pt.spgemm(a, b, alg=3, impl="dense", precision="high"),
+        st.spgemm(a_ref, b_ref, alg=3, impl="dense", precision="high"))
+    with pytest.raises(ValueError, match="precision"):
+        pt.spgemm(a, b, alg=3, impl="dense", precision="tf32")
     with pytest.raises(ValueError, match="mismatch"):
         pt.spgemm(a, a, alg=2, impl="dense")

@@ -1225,6 +1225,69 @@ def test_bsr_spmm_tensor_core_tiles(dev, R, inputs):
     assert_bitwise(bsr_spmm(*args), got)
 
 
+def _as_kernel_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x in `dtype`; int32 takes round(8 x), so the values are not all 0."""
+    if dtype == torch.int32:
+        return (x * 8).round().to(dtype)
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("m,n,density,blocksize,k", [
+    (64, 256, 0.05, (8, 128), 128),
+    (40, 200, 0.1, (8, 128), 70),     # ragged K and N
+    (300, 300, 0.05, (130, 3), 65),   # tall blocks, narrow ones
+])
+def test_bsr_spmm_fma_kernel_vs_plain(dev, dtype, m, n, density, blocksize,
+                                      k):
+    """The FMA kernel of the other dtypes, launched by `bsr_spmm` and by
+    spmm(via="bsr_pallas"), against the plain version of the same inputs
+    (on the CPU, where torch multiplies int32): bitwise for int32, within
+    1e-12 (float64) or 2^-6 (bfloat16, 4 ulps) of each entry's absolute
+    sum (|A| @ |B|), and bitwise on rerun."""
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
+
+    _, ab = _bsr_on(dev, m, n, density, blocksize, seed=m + n)
+    ab = ab._with_data(_as_kernel_dtype(ab.data, dtype))
+    b = _as_kernel_dtype(torch.from_numpy(np.random.default_rng(
+        k).standard_normal((n, k)).astype(np.float32)).to(dev), dtype)
+    args = (ab.indptr, ab.indices, ab.data, b, m)
+    before = _build.LAUNCHES["bsr_spmm"]
+    got = bsr_spmm(*args)
+    assert _build.LAUNCHES["bsr_spmm"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, k)
+    host = [t.cpu() for t in args[:4]]
+    want = bsr_spmm_plain(*host, m)
+    if dtype == torch.int32:
+        assert_bitwise(got.cpu(), want)
+    else:
+        scale = bsr_spmm_plain(*host[:2], host[2].double().abs(),
+                               host[3].double().abs(), m)
+        rel = 2.0**-6 if dtype == torch.bfloat16 else 1e-12
+        assert bool(((got.cpu().double() - want.double()).abs()
+                     <= rel * scale).all())
+    assert_bitwise(bsr_spmm(*args), got)
+    y = pt.spmm(ab, b, via="bsr_pallas")
+    assert _build.LAUNCHES["bsr_spmm"] == before + 3
+    assert_bitwise(y, got)
+
+
+@pytest.mark.gpu
+def test_bsr_spmm_other_dtypes_raise_on_card(dev):
+    """complex raises as JAX's kernel does; a dtype the kernel has no
+    instance for raises on the card rather than run the plain version."""
+    from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm
+
+    ab = pt.random(16, 256, 0.05, format="csr", seed=1,
+                   device=dev).tobsr()
+    for dtype in (torch.complex64, torch.float16):
+        with pytest.raises(NotImplementedError, match=str(dtype)):
+            bsr_spmm(ab.indptr, ab.indices, ab.data.to(dtype),
+                     torch.ones(256, 8, dtype=dtype, device=dev), 16)
+
+
 @pytest.mark.gpu
 def test_bsr_spmm_empty_launches_nothing(dev):
     from spmm_tpu_torch.ops.kernels.bsr_spmm import spmm_bsr
@@ -1319,3 +1382,231 @@ def test_new_formats_default_to_the_card(dev):
     # tensors keep their device
     assert pt.COO((torch.from_numpy(data), (row, col)),
                   shape=(4, 4)).device == torch.device("cpu")
+
+
+# -- element widths, precision modes, indexing -----------------------------
+
+WIDTH_DTYPES = [torch.bfloat16, torch.float32, torch.float64,
+                torch.complex64, torch.complex128]
+
+
+def _values_of(dtype, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.standard_normal(2 * n))
+    v = torch.complex(v[:n], v[n:]) if dtype.is_complex else v[:n]
+    v = v.to(dtype)
+    if n:
+        v[0] = -0.0  # a stored -0.0 moves as it is
+    return v.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", WIDTH_DTYPES, ids=str)
+@pytest.mark.parametrize("m,k,density", [
+    (33, 45, 0.3), (3000, 7, 0.5),
+    # rows across the 1024-, 2048- and 4096-cell windows of 16, 8 and
+    # 2-or-4-byte values, and k at their edges
+    (5, 1023, 0.1), (3, 1025, 0.2), (2, 2047, 0.1), (2, 2049, 0.1),
+    (5, 4097, 0.05), (1, 9001, 0.1), (4096, 1, 0.5),
+])
+@pytest.mark.parametrize("with_pattern", [True, False])
+def test_densify_every_width_bitwise_vs_plain(dev, dtype, m, k, density,
+                                              with_pattern):
+    indptr, indices, data = csr_arrays(m, k, density, seed=m + k, zeros=2,
+                                       empty_rows=(m // 2,) if m > 1 else ())
+    ip, ix = _on(dev, indptr, indices)
+    vals = _values_of(dtype, data.size, m * k, dev)
+    before = _build.LAUNCHES["densify_onehot"]
+    got = densify_onehot(ip, ix, vals, m, k, with_pattern=with_pattern)
+    again = densify_onehot(ip, ix, vals, m, k, with_pattern=with_pattern)
+    assert _build.LAUNCHES["densify_onehot"] == before + 2
+    want = densify_onehot_plain(ip, ix, vals, m, k, with_pattern)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    for x, y, z in zip(got, want, again):
+        if y is None:
+            assert x is None and z is None
+            continue
+        assert_bitwise(x, y)
+        assert_bitwise(z, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", WIDTH_DTYPES, ids=str)
+@pytest.mark.parametrize("name", ["headline", "mostly_holes", "wide_rows",
+                                  "n1", "n17", "m1", "all_false",
+                                  "all_true"])
+def test_extract_every_width_bitwise_vs_plain(dev, dtype, name, tiles):
+    c, mask, nnz = _extract_case(name)
+    c = _values_of(dtype, c.size, c.size, dev).view(c.shape) \
+        * torch.from_numpy(mask).to(dev)
+    (mask,) = _on(dev, mask)
+    for cap in (nnz, nnz + 5, nnz + 40_000, max(nnz - 5, 0), 0):
+        before = _build.LAUNCHES["extract_roll"]
+        got = extract_roll(c, mask, cap)
+        again = extract_roll(c, mask, cap)
+        assert _build.LAUNCHES["extract_roll"] == before + 2
+        want = extract_roll_plain(c, mask, cap)
+        torch.cuda.synchronize()
+        assert got[2].dtype == dtype
+        for x, y, z in zip(got, want, again):
+            assert_bitwise(x, y)
+            assert_bitwise(z, x)
+
+
+def _gate_ratio(c, ref):
+    """max |c - ref| / (1e-6 |ref| + 1e-6 max|ref|): the gate of "highest"
+    passes at <= 1."""
+    ref = ref.double()
+    tol = 1e-6 * ref.abs() + 1e-6 * ref.abs().max()
+    return float(((c.double() - ref).abs() / tol).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "normal"])
+def test_precision_modes_on_card(dev, kind):
+    """The value GEMM in each mode against the float64 product: "highest"
+    within the 1e-6 gate everywhere; the 3xTF32 "high" within it on a
+    SpGEMM cell's kind of operands (U[0,1) values at density 0.1), and on
+    dense N(0,1) operands (K = 1024) at least 50x closer than one TF32
+    pass, not within it: there the tensor cores' float32 accumulators over
+    the whole K lose bits the IEEE GEMM keeps (1.66x the gate measured on
+    an H100); one TF32 pass ("default") far outside the gate on both.  The
+    global TF32 setting is as it was after each."""
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    rng = np.random.default_rng(5)
+    shape_a, shape_b = (1024, 1024), (1024, 768)
+    if kind == "uniform":
+        a = rng.random(shape_a) * (rng.random(shape_a) < 0.1)
+        b = rng.random(shape_b) * (rng.random(shape_b) < 0.1)
+    else:
+        a = rng.standard_normal(shape_a)
+        b = rng.standard_normal(shape_b)
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (a, b))
+    ref = a.double() @ b.double()
+    before = torch.backends.cuda.matmul.fp32_precision
+    ratios = {mode: _gate_ratio(sg._value_matmul(a, b, mode), ref)
+              for mode in ("highest", "high", "default")}
+    assert torch.backends.cuda.matmul.fp32_precision == before
+    assert ratios["highest"] <= 1.0, ratios
+    if kind == "uniform":
+        assert ratios["high"] <= 1.0, ratios
+    else:
+        assert ratios["high"] * 50 <= ratios["default"], ratios
+    assert ratios["default"] > 10.0, ratios
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["alg1", "alg2", "alg3", "plan"])
+def test_high_precision_spgemm_on_card(dev, path):
+    """spgemm and a serving plan in "high" at the 1e-6 gate of scipy."""
+    a = pt.random(384, 320, 0.1, format="csr", seed=51, device=dev)
+    b = pt.random(320, 352, 0.1, format="csr", seed=52, device=dev)
+    if path == "plan":
+        c = pt.spgemm_plan(a, b, precision="high")(a.data, b.data)
+    else:
+        c = pt.spgemm(a, b, alg={"alg1": 1, "alg2": 2, "alg3": 3}[path],
+                      impl="dense", precision="high")
+    _scipy_check(a, b, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64,
+                                   torch.complex128, torch.bfloat16])
+@pytest.mark.parametrize("alg", [1, 2, 3])
+def test_wide_spgemm_on_card_vs_cpu(dev, dtype, alg):
+    """alg1 and the blocked engines in each dtype on the card: the
+    structure bitwise the CPU's, the values within the JAX dtype tests'
+    tolerance of it (bf16: 2 bf16 ulps of the product rounded once), the
+    densify and extract kernels launched."""
+    a = pt.random(200, 150, 0.1, format="csr", seed=61, device="cpu")
+    b = pt.random(150, 170, 0.1, format="csr", seed=62, device="cpu")
+    if dtype.is_complex:
+        a = a._with_data(torch.complex(a.data, a.data.flip(0)).to(dtype))
+        b = b._with_data(torch.complex(b.data.flip(0), b.data).to(dtype))
+    else:
+        a, b = a.astype(dtype), b.astype(dtype)
+    want = pt.spgemm(a, b, alg=alg, impl="dense")
+    _build.reset_launches()
+    got = pt.spgemm(a.to(dev), b.to(dev), alg=alg, impl="dense")
+    assert _build.LAUNCHES["densify_onehot"] >= 1
+    assert _build.LAUNCHES["extract_roll"] >= 1
+    assert got.dtype == dtype
+    assert_bitwise(got.indptr, want.indptr)
+    assert_bitwise(got.indices, want.indices)
+    g, w = got.data.cpu(), want.data
+    if dtype == torch.bfloat16:
+        g, w = g.float(), w.float()
+        assert bool(((g - w).abs() <= 2 * 2.0 ** -8 * w.abs()).all())
+        return
+    tol = 1e-12 if dtype in (torch.float64, torch.complex128) else 1e-5
+    assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_wide_spmv_spmm_on_card_bitwise_vs_cpu(dev):
+    """float64 and complex128 SpMV / SpMM by JAX's gather-and-sum path: the
+    in-order segment sum on the card, bitwise the CPU's."""
+    for dtype in (torch.float64, torch.complex128):
+        a = pt.random(300, 250, 0.05, format="csr", seed=7,
+                      dtype=torch.float64, device="cpu").astype(dtype)
+        x = _values_of(dtype, 250, 1, "cpu")
+        X = _values_of(dtype, 250 * 9, 2, "cpu").view(250, 9)
+        ad = a.to(dev)
+        _build.reset_launches()
+        y, Y = pt.spmv(ad, x.to(dev)), pt.spmm(ad, X.to(dev))
+        assert _build.LAUNCHES["segment_sum"] == 2
+        assert_bitwise(y, pt.spmv(a, x))
+        assert_bitwise(Y, pt.spmm(a, X))
+
+
+INDEX_KEYS = [
+    ("row slice", slice(100, 2900)),
+    ("row array", np.arange(3999, 0, -3)),
+    ("column slice", (slice(None), slice(1000, 3100))),
+    ("every 7th column", (slice(None), np.arange(0, 4000, 7))),
+    ("boolean rows", np.arange(4000) % 5 == 2),
+    ("pairs", (np.arange(0, 4000, 2), np.arange(3999, 0, -2))),
+    ("mesh", np.ix_(np.arange(5, 400, 9), np.arange(3, 4000, 11))),
+    ("element", (17, 2213)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,key", INDEX_KEYS, ids=[k[0] for k in
+                                                     INDEX_KEYS])
+def test_indexing_on_card_bitwise_vs_cpu(dev, name, key):
+    a = pt.random(4000, 4000, 0.01, format="csr", seed=71, device="cpu")
+    got, want = a.to(dev)[key], a[key]
+    if isinstance(want, torch.Tensor):
+        assert got.device == dev
+        assert_bitwise(got, want)
+        return
+    assert got.device == dev
+    assert got.has_canonical_format == want.has_canonical_format
+    assert tuple(got.shape) == tuple(want.shape)
+    _bitwise_csr(got, want)
+
+
+@pytest.mark.gpu
+def test_assignment_on_card_bitwise_vs_cpu(dev):
+    a = pt.random(3000, 2000, 0.01, format="csr", seed=72, device="cpu")
+    b = pt.random(40, 70, 0.2, format="csr", seed=73, device="cpu")
+    g = a.to(dev)
+    for m, bb in ((a, b), (g, b.to(dev))):
+        m[100:140, 500:570] = bb
+        m[np.arange(0, 3000, 7)] = 1.25
+        m.setdiag(2.5, k=3)
+        m[np.array([7, 9, 7]), np.array([1, 1, 1])] = np.array(
+            [1.0, 2.0, 3.0], np.float32)
+    assert g.device == dev
+    _bitwise_csr(g, a)
+
+
+@pytest.mark.gpu
+def test_dia_from_parts_of_host_arrays_on_card(dev):
+    data = np.arange(18, dtype=np.float64).reshape(2, 9)
+    d = pt.DIA.from_parts(data, [0, 2], (8, 9))
+    assert d.device == dev and d.dtype == torch.float32
+    cpu = pt.DIA.from_parts(data, [0, 2], (8, 9), device="cpu")
+    assert_bitwise(d.toarray(), cpu.toarray())

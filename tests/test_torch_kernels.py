@@ -109,8 +109,12 @@ def test_densify_wrapper_checks_inputs():
     indptr, indices, data = _t(*csr_arrays(10, 12, 0.3, seed=10))
     with pytest.raises(ValueError, match="indptr"):
         densify_onehot(indptr.long(), indices, data, 10, 12)
+    # every dtype of 2, 4, 8 or 16 bytes moves; a 1-byte one is refused
     with pytest.raises(ValueError, match="data"):
-        densify_onehot(indptr, indices, data.double(), 10, 12)
+        densify_onehot(indptr, indices, data.to(torch.uint8), 10, 12)
+    got, _ = densify_onehot(indptr, indices, data.double(), 10, 12)
+    assert_bitwise(got, densify_onehot(indptr, indices, data, 10, 12)[0]
+                   .double())
     with pytest.raises(ValueError, match="rows"):
         densify_onehot(indptr, indices, data, 11, 12)
 
@@ -177,8 +181,11 @@ def test_extract_wrapper_on_cpu_is_plain_and_counts_nothing():
 
 def test_extract_wrapper_checks_inputs():
     c, mask, nnz = _t(*masked_dense(6, 8, 3, seed=13)[:2]) + (45,)
+    # every dtype of 2, 4, 8 or 16 bytes moves; a 1-byte one is refused
     with pytest.raises(ValueError, match="c must"):
-        extract_roll(c.double(), mask, nnz)
+        extract_roll(c.to(torch.uint8), mask, nnz)
+    assert_bitwise(extract_roll(c.double(), mask, nnz)[2],
+                   extract_roll(c, mask, nnz)[2].double())
     with pytest.raises(ValueError, match="mask"):
         extract_roll(c, mask.to(torch.uint8), nnz)
     with pytest.raises(ValueError, match="cap"):

@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import scipy.sparse as sp  # noqa: E402
 
@@ -480,12 +481,26 @@ def test_plan_validates():
     with pytest.raises(ValueError, match="mismatch"):
         pt.spgemm_plan(a, pt.random(64, 8, 0.1, format="csr", seed=0,
                                     device="cpu"))
-    with pytest.raises(NotImplementedError, match="precision"):
-        pt.spgemm_plan(a, b, precision="high")
+    # "high" and a float64 operand compute now, as in JAX: a wide plan in
+    # float32, its CSR cast back to float64; an unknown mode still raises
+    want = st.spgemm_plan(a_ref, b_ref, precision="high",
+                          interpret=True)(a_ref.data, b_ref.data)
+    got = pt.spgemm_plan(a, b, precision="high")(a.data, b.data)
+    _assert_close(got.data, want.data)
+    with pytest.raises(ValueError, match="precision"):
+        pt.spgemm_plan(a, b, precision="tf32")
     b64 = pt.CSR.from_parts(b.indptr, b.indices, b.data.double(), b.shape,
                             canonical=True)
-    with pytest.raises(NotImplementedError, match="float32"):
-        pt.spgemm_plan(a, b64)
+    with jax.enable_x64(True):
+        b64_ref = st.CSR.from_parts(np.asarray(b_ref.indptr),
+                                    np.asarray(b_ref.indices),
+                                    np.asarray(b_ref.data, np.float64),
+                                    b_ref.shape, canonical=True)
+        jplan64 = st.spgemm_plan(a_ref, b64_ref, interpret=True)
+        want = jplan64(a_ref.data, b64_ref.data)
+        got = pt.spgemm_plan(a, b64)(a.data, b64.data)
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        _assert_close(got.data, want.data)
 
 
 @pytest.mark.parametrize("alpha", [2.0, "vector"])
@@ -550,6 +565,36 @@ def test_plan_values_accumulate():
     _assert_close(got, want)
     with pytest.raises(ValueError, match="planned nnz"):
         plan.values_accumulate(torch.zeros(plan.nnz + 1), a.data, b.data)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16", "complex64"])
+def test_plan_values_accumulate_wide(dtype):
+    """beta*C + alpha*A@B for a C buffer of another dtype, against JAX's
+    (x64 on): JAX's result dtype, float32 beta times C plus the float32
+    product; in place for float64 and complex64, a new float32 tensor for
+    bfloat16."""
+    a_ref, a, b_ref, b = _pair(128, 128, 128, 0.1, 0.1, seed=17)
+    plan = pt.spgemm_plan(a, b)
+    rng = np.random.default_rng(3)
+    prev = rng.standard_normal(plan.nnz)
+    if dtype == "complex64":
+        prev = prev + 1j * rng.standard_normal(plan.nnz)
+    with jax.enable_x64(True):
+        jplan = st.spgemm_plan(a_ref, b_ref, interpret=True)
+        prev_j = jnp.asarray(prev).astype(dtype)
+        # the same values (bfloat16 exactly as float32), copied before
+        # JAX's call takes the donated buffer
+        prev_np = np.array(prev_j.astype(jnp.float32)
+                           if dtype == "bfloat16" else prev_j)
+        want = jplan.values_accumulate(prev_j, a_ref.data, b_ref.data,
+                                       alpha=0.5, beta=-2.0)
+    c = torch.from_numpy(prev_np).to(getattr(torch, dtype))
+    got = plan.values_accumulate(c, a.data, b.data, alpha=0.5, beta=-2.0)
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    assert (got is c) == (dtype != "bfloat16")
+    if dtype == "bfloat16":  # the buffer is left as it was
+        assert_bitwise(c.float(), torch.from_numpy(prev_np))
+    _assert_close(got, want)
 
 
 def test_plan_of_unsorted_duplicate_operands():

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
 import spmm_tpu as st  # noqa: E402
 import spmm_tpu_torch as pt  # noqa: E402
 from spmm_tpu_torch.ops import _primitives as prim  # noqa: E402
@@ -253,15 +255,30 @@ def test_bad_arguments_raise():
         pt.spgemm(a, a)
     with pytest.raises(TypeError):
         pt.spgemm(a, b.toarray())
+    # the precision modes and float64 compute now, as in JAX (on the CPU
+    # every mode is IEEE float32 in both); an unknown mode still raises
+    a_ref, _, b_ref, _ = _operands(*SPGEMM_CASES["nonsquare"])
     for precision in ("high", "default"):
-        with pytest.raises(NotImplementedError, match="precision"):
-            pt.spgemm(a, b, precision=precision)
-        with pytest.raises(NotImplementedError, match="precision"):
-            pt.spgemm_fixed(a, b, precision=precision)
+        assert_csr_match(pt.spgemm(a, b, precision=precision),
+                         st.spgemm(a_ref, b_ref, precision=precision))
+        assert_csr_match(pt.spgemm_fixed(a, b, precision=precision)[0],
+                         st.spgemm_fixed(a_ref, b_ref,
+                                         precision=precision)[0])
+    with pytest.raises(ValueError, match="precision"):
+        pt.spgemm(a, b, precision="tf32")
+    with pytest.raises(KeyError):
+        st.spgemm(a_ref, b_ref, alg=1, precision="tf32")
     b64 = pt.CSR.from_parts(b.indptr, b.indices, b.data.double(), b.shape,
                             canonical=True)
-    with pytest.raises(NotImplementedError, match="float32"):
-        pt.spgemm(a, b64)
+    with jax.enable_x64(True):
+        b64_ref = st.CSR.from_parts(np.asarray(b_ref.indptr),
+                                    np.asarray(b_ref.indices),
+                                    np.asarray(b_ref.data, np.float64),
+                                    b_ref.shape, canonical=True)
+        want = st.spgemm(a_ref, b64_ref)
+        got = pt.spgemm(a, b64)
+        assert got.dtype == torch.float64 and want.dtype == np.float64
+        assert_csr_match(got, want, rtol=1e-12)
 
 
 def test_non_canonical_input_raises():

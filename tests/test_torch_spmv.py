@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import spmm_tpu as st  # noqa: E402
@@ -617,21 +618,37 @@ def test_spmv_spmm_validation_matches_jax():
             mat @ 2.0
 
 
+def _close64(got, want):
+    """float64 values within 1e-12 x max|want| of JAX's."""
+    w = np.asarray(want)
+    assert got.dtype == torch.float64 and w.dtype == np.float64
+    np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                               atol=1e-12 * np.abs(w).max())
+
+
 def test_port_only_errors():
     _, a = pair(8, 8, 0.5, seed=0)
     x = np.ones(8, np.float32)
     for via in ("binned", "onehot"):  # as JAX off the TPU
         with pytest.raises(ValueError, match="does not apply"):
             pt.spmv(a, x, via=via)
-    with pytest.raises(NotImplementedError, match="float32"):
-        pt.spmv(a, torch.ones(8, dtype=torch.float64))
+    # float64 operands compute now, as in JAX with x64 (promoted to the
+    # common type), on every route, the BSR ones included
     a64 = pt.random(8, 8, 0.5, format="csr", seed=0, dtype=torch.float64,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        pt.spmm(a64, np.ones((8, 2), np.float32))
-    for via in ("bsr", "bsr_pallas"):  # the BSR routes hold float32 too
-        with pytest.raises(NotImplementedError, match="float32"):
-            pt.spmm(a64.tobsr(), np.ones((8, 2), np.float32), via=via)
+    x64, X = np.linspace(-1, 1, 8), np.ones((8, 2), np.float32)
+    with jax.enable_x64(True):
+        a_ref = st.CSR.from_parts(*(np.asarray(t) for t in (
+            a.indptr, a.indices, a.data)), (8, 8), canonical=True)
+        a64_ref = st.CSR.from_parts(*(t.numpy() for t in (
+            a64.indptr, a64.indices, a64.data)), (8, 8), canonical=True)
+        y = pt.spmv(a, torch.from_numpy(x64))
+        assert y.dtype == torch.float64
+        _close64(y, st.spmv(a_ref, jnp.asarray(x64)))
+        _close64(pt.spmm(a64, X), st.spmm(a64_ref, jnp.asarray(X)))
+        for via in ("bsr", "bsr_pallas"):
+            _close64(pt.spmm(a64.tobsr(), X, via=via),
+                     st.spmm(a64_ref.tobsr(), jnp.asarray(X), via=via))
     plan = spmv_binned_plan(a.indptr, a.indices, a.data, 8, 8)
     with pytest.raises(ValueError, match="x has"):
         spmv_binned(torch.ones(9), plan)

@@ -136,17 +136,22 @@ def assert_csr_bitwise(got, want):
 
 def as_bits(x):
     """Host integer view of a numpy, JAX or torch array, for bitwise
-    comparison (float32 -> uint32, bfloat16 -> uint16)."""
+    comparison (float32 -> uint32, bfloat16 -> uint16, float64 -> uint64,
+    complex -> the bits of its (real, imaginary) pairs)."""
     if hasattr(x, "detach"):
         import torch
 
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:  # numpy has no bfloat16
             return x.view(torch.int16).numpy().view(np.uint16)
-        x = x.numpy()
+        x = x.resolve_conj().numpy()
     x = np.asarray(x)
+    if x.dtype.kind == "c":
+        x = np.stack([x.real, x.imag], -1)
     if x.dtype == np.float32:
         return x.view(np.uint32)
+    if x.dtype == np.float64:
+        return x.view(np.uint64)
     if x.dtype.name == "bfloat16":
         return x.view(np.uint16)
     return x
