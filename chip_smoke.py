@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs seventeen phases and prints findings
+`build/spmm_tpu_torch/`), then runs twenty-one phases and prints findings
 for each:
 
   0. device and build: torch and CUDA versions, the card's name and power
@@ -132,7 +132,26 @@ for each:
      plan: time a call, device busy, the value GEMM's share, and the error
      against scipy's float64 product (max |dC| / max|C| and the share of
      entries outside the 1e-6 gate); "high" must pass the gate of
-     "highest", "default" only 1e-2 max|C|.
+     "highest", "default" only 1e-2 max|C|;
+ 17. the headline, `spmm_tpu_torch.bench`'s measurement in-process: one
+     `_alg1_fixed` call at 1024^2/0.1 captured as a CUDA graph, checked
+     bitwise against an eager call, replayed 100 times between one event
+     pair (`value`), beside the per-call, full-pipeline, cuSPARSE and
+     device-busy times;
+ 18. `calibrate_break_even` over its default grid into
+     `build/break_even_torch.json`; with the table in force,
+     `matmul(mode="auto")` takes the dense route at the crossover and the
+     sparse one below it, by launch counts, against scipy;
+ 19. `sddmm` at 4096^2/0.01 (k = 64), at an empty S and at k = 1 against
+     scipy's float64 per entry within 1e-6 |alpha||s|(|A||B|)_ij, bitwise
+     on rerun, timed beside `torch.sparse.sampled_addmm`; a card matrix
+     through the text and npz files and back bitwise; routed and binned
+     SpMV plans of 16384^2/5e-3 saved, loaded onto the card, and their
+     SpMV bitwise the built plans' twice;
+ 20. the experiment suites on the card: `experiments.deterministic` (sizes 32-1024,
+     densities 0.01-0.3, seed 1, algs 1-3: six processes) must say ALL
+     DETERMINISTIC, and `experiments.cross_check` must pass all 45 cases
+     of the reference's grid.
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
@@ -2470,6 +2489,245 @@ def phase16(smi):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the headline, the calibration, sddmm and io, the experiment suites (phases 17-20)
+# --------------------------------------------------------------------------
+
+# S of the sddmm check (n, density, seed), A (n, SDDMM_K), B (SDDMM_K, n)
+SDDMM_CELL = (4096, 0.01, 2020)
+SDDMM_K = 64
+SDDMM_ALPHA = 1.5
+GEMM_TOL = 1e-5  # phase 18's gate, relative to (|A||X|)_ij
+# the suites' grids: the determinism suite cut from the reference's
+# (sizes 32-1024 x 0.01-0.5 x seeds 1-10) to what the time limit allows;
+# the cross-check at the reference's full grid (45 cases)
+DET_ARGS = ["--sizes", "32", "128", "512", "1024",
+            "--densities", "0.01", "0.1", "0.3", "--seeds", "1",
+            "--algs", "1", "2", "3"]
+
+
+def phase17(smi):
+    """The headline, `spmm_tpu_torch.bench`'s measurement in-process: the
+    captured `_alg1_fixed` graph is bitwise an eager call (bench raises
+    otherwise), then its line."""
+    from spmm_tpu_torch import bench
+
+    line = bench.measure()
+    if not line["graph_bitwise_eager"]:
+        raise AssertionError("phase 17: the graph differs from eager")
+    print(f"phase 17 [{smi}]: captured _alg1_fixed graph bitwise an eager "
+          f"call; " + json.dumps(line), flush=True)
+    return line
+
+
+def phase18(dev, smi):
+    """`calibrate_break_even` over its default grid into the build
+    directory; then, with `tuning._DEFAULT_CACHE` pointed at that table,
+    `matmul(mode="auto")` at the table's crossover (and above) takes the
+    dense route (a `densify_onehot` launch, no `spmm_routed`), and at a
+    quarter of it the sparse one; both against scipy's float64 product,
+    per entry within GEMM_TOL of (|A||X|)_ij (float32 sums over K = 1024
+    on either route).  The old table path and cache are restored after."""
+    from spmm_tpu_torch.ops import dispatch
+    from spmm_tpu_torch.utils import tuning
+
+    path = _build.BUILD_DIR.parent / "break_even_torch.json"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        table = tuning.calibrate_break_even(save_path=str(path))
+    took = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"phase 18 [{smi}]: {line}", flush=True)
+    print(f"phase 18 [{smi}]: table {json.dumps(table)} in {took:.1f} s",
+          flush=True)
+    size = min(table)
+    d_hi = table[size]
+    old = tuning._DEFAULT_CACHE
+    routes = {}
+    try:
+        tuning._DEFAULT_CACHE = str(path)
+        dispatch.reload_break_even()
+        if dispatch.break_even_density(size, size, tuning.B_COLS) != d_hi:
+            raise AssertionError("phase 18: dispatch does not read the "
+                                 "calibrated table")
+        x = torch.ones((size, tuning.B_COLS), device=dev)
+        for want, density in (("dense", min(1.0, 1.01 * d_hi)),
+                              ("sparse", d_hi / 4)):
+            a = pt.random(size, size, density, format="csr", seed=2021,
+                          device=dev)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            y = pt.matmul(a, x)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            dense = launches["densify_onehot"] > 0
+            sparse = launches["spmm_routed"] > 0
+            took_route = ("dense" if dense and not sparse else
+                          "sparse" if sparse and not dense else "both")
+            ref = a.to_scipy().astype(np.float64) @ np.ones(
+                (size, tuning.B_COLS))
+            scale = (abs(a.to_scipy()).astype(np.float64)
+                     @ np.ones((size, tuning.B_COLS)))
+            ratio = float((np.abs(y.cpu().numpy() - ref)
+                           / (GEMM_TOL * scale + 1e-30)).max())
+            routes[want] = {"density": a.density, "route": took_route,
+                            "densify_onehot": launches["densify_onehot"],
+                            "spmm_routed": launches["spmm_routed"],
+                            "err_over_gate": ratio}
+            if took_route != want or ratio > 1.0:
+                raise AssertionError(f"phase 18: at density {a.density} "
+                                     f"(crossover {d_hi}) matmul took "
+                                     f"{routes[want]}, expected {want}")
+    finally:
+        tuning._DEFAULT_CACHE = old
+        dispatch.reload_break_even()
+    print(f"phase 18: n={size}, crossover {d_hi}: matmul(mode='auto') "
+          f"{json.dumps(routes)}", flush=True)
+    return table
+
+
+def sddmm_check(s, a, b, alpha) -> float:
+    """The largest |got - want| / (1e-6 |alpha| |s_ij| (|A||B|)_ij) over
+    S's entries, `want` scipy's float64; S's structure must be kept
+    bitwise."""
+    got = pt.sddmm(s, a, b, alpha=alpha)
+    again = pt.sddmm(s, a, b, alpha=alpha)
+    if not (same_bits(got.indptr, s.indptr)
+            and same_bits(got.indices, s.indices)
+            and same_bits(again.data, got.data)):
+        raise AssertionError("phase 19: sddmm changed S's structure or its "
+                             "bits on rerun")
+    if s.nnz == 0:
+        return 0.0
+    rows = s.rows.long().cpu().numpy()
+    cols = s.indices.long().cpu().numpy()
+    a64 = a.double().cpu().numpy()
+    b64 = b.double().cpu().numpy()
+    sv = s.data.double().cpu().numpy()
+    want = alpha * sv * np.einsum("ij,ji->i", a64[rows], b64[:, cols])
+    gate = RTOL * abs(alpha) * np.abs(sv) * np.einsum(
+        "ij,ji->i", np.abs(a64[rows]), np.abs(b64[:, cols]))
+    err = np.abs(got.data.double().cpu().numpy() - want)
+    return float((err / (gate + 1e-30)).max())
+
+
+def phase19(dev, smi):
+    """sddmm against scipy's float64 (within 1e-6 |alpha||s|(|A||B|)_ij,
+    bitwise on rerun) at S = 4096^2/0.01, an empty S and k = 1, timed
+    beside torch.sparse.sampled_addmm; a card matrix through the text and
+    npz files and back bitwise; routed and binned plans of the SpMV
+    16384^2/5e-3 cell saved, loaded onto the card, and their SpMV bitwise
+    the built plans' twice in a row."""
+    import tempfile
+
+    from spmm_tpu_torch.sparse import io as spio
+
+    n, density, seed = SDDMM_CELL
+    rng = np.random.default_rng(seed)
+    s = pt.random(n, n, density, format="csr", seed=seed, device=dev)
+
+    def dense(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    a, b = dense(n, SDDMM_K), dense(SDDMM_K, n)
+    errs = {
+        f"{n}^2/{density} k={SDDMM_K}": sddmm_check(s, a, b, SDDMM_ALPHA),
+        "empty S": sddmm_check(pt.random(n, n, 0.0, format="csr", seed=1,
+                                         device=dev), a, b, SDDMM_ALPHA),
+        "k=1": sddmm_check(s, dense(n, 1), dense(1, n), SDDMM_ALPHA),
+    }
+    if max(errs.values()) > 1.0:
+        raise AssertionError(f"phase 19: sddmm outside its gate: {errs}")
+    ones = torch_csr(s.indptr, s.indices, torch.ones_like(s.data), s.shape)
+    nnz = s.nnz
+    cell = f"{n}^2/{density} k={SDDMM_K}"
+    row = {
+        "cell": f"sddmm {cell}", "nnz": nnz,
+        "err_over_gate": errs,
+        "sddmm_ms": median_ms(lambda: pt.sddmm(s, a, b, alpha=SDDMM_ALPHA)),
+        "sddmm_busy_ms": device_profile(
+            lambda: pt.sddmm(s, a, b, alpha=SDDMM_ALPHA))[0],
+        "sampled_addmm_ms": median_ms(
+            lambda: torch.sparse.sampled_addmm(ones, a, b)),
+        "sampled_addmm_busy_ms": device_profile(
+            lambda: torch.sparse.sampled_addmm(ones, a, b))[0],
+        # S read once (indptr, indices, values), A and B once, the values
+        # written once; two flops an entry and column of A
+        "bound": bound(4 * (n + 1) + 12 * nnz + 4 * SDDMM_K * 2 * n,
+                       2 * nnz * SDDMM_K),
+    }
+    print(f"phase 19 [{smi}]: " + json.dumps(row), flush=True)
+
+    notes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = f"{tmp}/s"
+        spio.save_csr_txt(prefix, s)
+        spio.save_npz(prefix + ".npz", s)
+        for what, back in (("text", spio.load_csr_txt(prefix)),
+                           ("npz", spio.load_npz(prefix + ".npz"))):
+            if not (back.device == s.device and back.shape == s.shape
+                    and all(same_bits(x, y) for x, y in (
+                        (back.indptr, s.indptr), (back.indices, s.indices),
+                        (back.data, s.data)))):
+                raise AssertionError(f"phase 19: the {what} file did not "
+                                     "load back bitwise on the card")
+            notes.append(f"{what} round trip bitwise on {back.device}")
+        a16 = pt.random(16384, 16384, 5e-3, format="csr", seed=2014,
+                        device=dev)
+        x = torch.from_numpy(np.random.default_rng(2024).standard_normal(
+            16384).astype(np.float32)).to(dev)
+        for effort in ("auto", "fast"):
+            plan = pt.spmv_plan(a16, effort=effort)
+            path = f"{tmp}/plan_{effort}.npz"
+            t0 = time.perf_counter()
+            spio.save_spmv_plan(path, plan)
+            t1 = time.perf_counter()
+            loaded = spio.load_spmv_plan(path)
+            t2 = time.perf_counter()
+            want = pt.spmv(a16, x, plan=plan)
+            runs = [pt.spmv(a16, x, plan=loaded) for _ in range(2)]
+            if not all(same_bits(y, want) for y in runs):
+                raise AssertionError(f"phase 19: the loaded {plan[0]} plan's "
+                                     "spmv differs from the built plan's")
+            notes.append(f"{plan[0]} plan of 16384^2/5e-3 saved in "
+                         f"{t1 - t0:.2f} s, loaded onto {dev} in "
+                         f"{t2 - t1:.2f} s, spmv bitwise twice")
+    print("phase 19: " + "; ".join(notes), flush=True)
+    return row
+
+
+def phase20(smi):
+    """The experiment suites on the card: the determinism suite (two processes per
+    alg, each over the whole grid) and the native cross-check (45 cases);
+    each must pass everything."""
+    from spmm_tpu_torch.experiments import cross_check, deterministic
+
+    report_dir = _build.BUILD_DIR.parent
+    t0 = time.perf_counter()
+    det_report = report_dir / "determinism_report_torch.txt"
+    rc = deterministic.main(DET_ARGS + ["--device", "cuda", "--report",
+                                        str(det_report)])
+    det_s = time.perf_counter() - t0
+    last = det_report.read_text().splitlines()[-1]
+    if rc != 0 or last != "ALL DETERMINISTIC":
+        raise AssertionError(f"phase 20: determinism suite said {last!r}")
+    t0 = time.perf_counter()
+    cc_report = report_dir / "cross_check_report_torch.txt"
+    rc = cross_check.main(["--device", "cuda", "--report", str(cc_report)])
+    cc_s = time.perf_counter() - t0
+    rows = [r for r in cc_report.read_text().splitlines()
+            if not r.startswith("#")]
+    passed = sum(r.startswith("PASS") for r in rows)
+    if rc != 0 or passed != len(rows) or len(rows) != 45:
+        raise AssertionError(f"phase 20: cross-check passed {passed} of "
+                             f"{len(rows)} cases")
+    print(f"phase 20 [{smi}]: determinism ALL DETERMINISTIC "
+          f"({' '.join(DET_ARGS)}) in {det_s:.1f} s; cross-check "
+          f"{passed} of {len(rows)} cases PASS in {cc_s:.1f} s", flush=True)
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -2510,6 +2768,12 @@ def main():
     phase14(dev, smi)
     phase15(dev, smi)
     phase16(smi)
+    torch.cuda.empty_cache()
+    phase17(smi)
+    phase18(dev, smi)
+    phase19(dev, smi)
+    torch.cuda.empty_cache()
+    phase20(smi)
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]

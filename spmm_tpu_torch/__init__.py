@@ -3,13 +3,16 @@
 It is written beside the JAX package `spmm_tpu`, which stays the reference.
 It carries the sparse containers (COO, CSR, CSC, BSR and DIA on an explicit
 torch device, with the conversions between them, the constructors,
-`find`/`tril`/`triu`, element-wise and data ops), the SpGEMM paths
+`find`/`tril`/`triu`, element-wise and data ops, and io), the SpGEMM paths
 (`spgemm` alg 0/1, the blocked dense and the ESC alg 2/3, `spgemm_fixed`,
 and the fixed-structure serving plans `spgemm_plan` / `SpgemmPlan`) and the
 SpMV/SpMM paths (`spmv`, `spmv_plan`, `spmm` with its CSR, dense and BSR
-routes, `break_even_density`, and `A @ x`, `A @ X`, `x @ A`, `X @ A` for
-every format) in JAX's dtypes and precision modes, CSR indexing and
-assignment (`A[...]`, `A[...] = B`, `setdiag`, `getcol`), with eleven
+routes, `break_even_density` with its table measured on the card, and
+`A @ x`, `A @ X`, `x @ A`, `X @ A` for every format) in JAX's dtypes and
+precision modes, `sddmm`, CSR indexing and assignment (`A[...]`,
+`A[...] = B`, `setdiag`, `getcol`), the profiler (`utils`), the headline
+script (`python3 -m spmm_tpu_torch.bench`) and the determinism and
+native cross-check suites (`spmm_tpu_torch.experiments`), with eleven
 hand-written CUDA kernels in place of the
 Pallas ones, and two of the port's own (the in-order segment sum and the
 binned SpMV plan), built with `nvcc` for `sm_90a` on first use.  Its
@@ -23,6 +26,7 @@ from spmm_tpu_torch.ops import (  # noqa: F401
     break_even_density,
     SpgemmPlan,
     matmul,
+    sddmm,
     spgemm,
     spgemm_fixed,
     spgemm_nnz_estimate,
@@ -52,6 +56,8 @@ from spmm_tpu_torch.sparse import (  # noqa: F401
     vstack,
 )
 
+from spmm_tpu_torch import utils  # noqa: F401,E402
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -74,6 +80,7 @@ __all__ = [
     "matmul",
     "rand",
     "random",
+    "sddmm",
     "spdiags",
     "spgemm",
     "spgemm_fixed",

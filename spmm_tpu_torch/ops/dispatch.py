@@ -13,12 +13,17 @@ Port of `spmm_tpu/ops/dispatch.py` (`matmul`, `rmatmul`,
 for A of any format (COO, CSR, CSC, BSR, DIA): as in JAX, a BSR @ dense
 takes the CSR path; its own routes are `spmm(via="bsr"/"bsr_pallas")`.
 
-The break-even curve is the JAX package's hard-coded fallback only.  Its
-`.break_even.json` was measured on a TPU and is not read; an H100
-calibration is ROADMAP §1.7.
+`break_even_density` reads the table that
+`spmm_tpu_torch.utils.tuning.calibrate_break_even` measures on the card
+(the port's own `.break_even_torch.json`, loaded lazily once;
+`reload_break_even` drops it), and falls back to the JAX package's
+hard-coded curve where there is no table.  The JAX package's
+`.break_even.json` was measured on a TPU and is never read.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -28,11 +33,30 @@ from spmm_tpu_torch.ops.spmm import spmm
 from spmm_tpu_torch.ops.spmv import as_dense, spmv
 
 
+@functools.cache
+def _measured_break_even():
+    from spmm_tpu_torch.utils.tuning import load_break_even
+
+    return load_break_even()
+
+
+def reload_break_even():
+    """Drop the cached calibration table (call after re-calibrating)."""
+    _measured_break_even.cache_clear()
+
+
 def break_even_density(m: int, k: int, n: int) -> float:
     """Density above which one dense GEMM beats the sparse paths, by
-    problem scale (the JAX package's hard-coded curve, seeded from the
-    reference's measured GPU curve, BASELINE.md §break-even)."""
+    problem scale: the measured table's entry at or above this scale
+    (larger problems have lower crossovers), its largest beyond it; with
+    no table, the JAX package's hard-coded curve, seeded from the
+    reference's measured GPU curve (BASELINE.md §break-even)."""
     scale = max(m, k, n)
+    table = _measured_break_even()
+    if table:
+        sizes = sorted(table)
+        return float(table[next((s for s in sizes if scale <= s),
+                                sizes[-1])])
     if scale <= 2048:
         return 1.0
     if scale <= 8192:

@@ -1610,3 +1610,109 @@ def test_dia_from_parts_of_host_arrays_on_card(dev):
     assert d.device == dev and d.dtype == torch.float32
     cpu = pt.DIA.from_parts(data, [0, 2], (8, 9), device="cpu")
     assert_bitwise(d.toarray(), cpu.toarray())
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the profiler, the headline's graph capture, sddmm and io
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_profile_op_delta_peak_of_a_known_allocation(dev):
+    from spmm_tpu_torch.utils.profiler import profile_op, repeat_op
+
+    nbytes = 64 * 2**20
+    r = profile_op("alloc", lambda: torch.empty(nbytes, dtype=torch.uint8,
+                                                device=dev))
+    assert nbytes <= r.delta_hbm_bytes <= nbytes + 2**20
+    assert r.peak_hbm_bytes >= r.delta_hbm_bytes and r.time_ms >= 0
+    assert r.out_shape == (nbytes,)
+    r = repeat_op("alloc", lambda: torch.ones(2**20, device=dev), runs=3)
+    assert len(r.times_ms) == 3
+    assert 4 * 2**20 <= r.delta_hbm_bytes <= 5 * 2**20
+
+
+@pytest.mark.gpu
+def test_repeat_op_skips_a_real_out_of_memory(dev, capsys):
+    from spmm_tpu_torch.utils.profiler import repeat_op
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    assert repeat_op("huge", lambda: torch.empty(2 * total, dtype=torch.uint8,
+                                                 device=dev)) is None
+    assert capsys.readouterr().out.startswith("[SKIP] huge: OutOfMemoryError")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,density", [(256, 0.1), (300, 0.05)])
+def test_alg1_fixed_graph_capture_bitwise_eager(dev, n, density):
+    from spmm_tpu_torch import bench
+
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    a = pt.random(n, n, density, format="csr", seed=n, device=dev)
+    b = pt.random(n, n, density, format="csr", seed=n + 1, device=dev)
+    cap = int(sg._alg1_dense_compute(a, b, 1.0)[2])
+    graph, out = bench.capture(lambda: sg._alg1_fixed(a, b, 1.0, cap))
+    graph.replay()
+    graph.replay()
+    eager = sg._alg1_fixed(a, b, 1.0, cap)
+    torch.cuda.synchronize()
+    assert bench.same_outputs(out, eager)
+    ref = pt.spgemm(a, b, alg=1)
+    _bitwise_csr(pt.CSR._wrap(out[0], out[1], out[2], (n, n),
+                              canonical=True), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["csr", "csc", "coo"])
+def test_sddmm_on_card(dev, fmt):
+    s_cpu = pt.random(500, 400, 0.02, format=fmt, seed=5, device="cpu")
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((500, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, 400)).astype(np.float32))
+    s = s_cpu.to(dev)
+    got = pt.sddmm(s, a.to(dev), b.to(dev), alpha=0.5)
+    again = pt.sddmm(s, a.to(dev), b.to(dev), alpha=0.5)
+    want = pt.sddmm(s_cpu, a, b, alpha=0.5)
+    assert got.device == dev and got.format == fmt
+    assert_bitwise(again.data, got.data)
+    gate = pt.sddmm(abs(s_cpu).astype(torch.float64), a.abs().double(),
+                    b.abs().double(), alpha=0.5)
+    for name in {"csr": ("indptr", "indices"), "csc": ("indptr", "indices"),
+                 "coo": ("row", "col")}[fmt]:
+        assert_bitwise(getattr(got, name), getattr(want, name))
+    err = (got.data.cpu().double() - want.data.double()).abs()
+    assert bool((err <= 2e-6 * gate.data).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("effort", ["auto", "fast"])
+def test_spmv_plans_loaded_onto_the_card(dev, tmp_path, effort):
+    from spmm_tpu_torch.sparse import io
+
+    a = pt.random(3000, 2500, 0.01, format="csr", seed=7, device=dev)
+    x = torch.randn(2500, device=dev)
+    plan = pt.spmv_plan(a, effort=effort)
+    path = str(tmp_path / "plan.npz")
+    io.save_spmv_plan(path, plan)
+    loaded = io.load_spmv_plan(path)
+    assert loaded[0] == plan[0]
+    assert all(t.device == dev for t in loaded[1]
+               if isinstance(t, torch.Tensor))
+    want = pt.spmv(a, x, plan=plan)
+    for _ in range(2):
+        assert_bitwise(pt.spmv(a, x, plan=loaded), want)
+    assert not loaded[1].counters.any()
+
+
+@pytest.mark.gpu
+def test_csr_loaders_default_to_the_card(dev, tmp_path):
+    from spmm_tpu_torch.sparse import io
+
+    a = pt.random(70, 90, 0.1, format="csr", seed=8, device=dev)
+    prefix = str(tmp_path / "m")
+    io.save_csr_txt(prefix, a)
+    io.save_npz(prefix + ".npz", a)
+    for back in (io.load_csr_txt(prefix), io.load_npz(prefix + ".npz")):
+        assert back.device == dev
+        _bitwise_csr(back, a)
+    assert io.load_npz(prefix + ".npz", device="cpu").device.type == "cpu"
