@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs twenty-one phases and prints findings
+`build/spmm_tpu_torch/`), then runs twenty-two phases and prints findings
 for each:
 
   0. device and build: torch and CUDA versions, the card's name and power
@@ -151,7 +151,20 @@ for each:
  20. the experiment suites on the card: `experiments.deterministic` (sizes 32-1024,
      densities 0.01-0.3, seed 1, algs 1-3: six processes) must say ALL
      DETERMINISTIC, and `experiments.cross_check` must pass all 45 cases
-     of the reference's grid.
+     of the reference's grid;
+ 21. the speed drivers' `main()` on the card through `--json` at small
+     grids, in a process of its own (this script with `--phase-21`, as a
+     driver runs from the command line): `alg_comparison` (1024^2/0.1 and
+     512^2/0.5, algs 1-3, `--memory`, `--device-loop`), `dense_vs_sparse`
+     (1024 and 2048 x 0.001/0.01/0.1), `spgemm_vs_spmv` (512^2/0.1),
+     `component_profile` (1024^2/0.1) and `numerical_error` (`error` at
+     256/512 x 0.1/0.5, `fraction --ref f64` at 512^2/0.1): every row its
+     grid implies, with positive times, busy times included; the alg 1-3
+     products of each alg_comparison cell of one structure, bitwise, and
+     within the SpGEMM gate of scipy; every max |C1 - C3| within 1e-6
+     max|C|; each driver's kernel launches (counts set to 0 just before
+     it, read just after) and the hand-written kernels a profiler trace of
+     its path shows, each kernel the path must launch among them.
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
@@ -169,9 +182,11 @@ import contextlib
 import importlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
+import sys
 import time
 import warnings
 
@@ -325,14 +340,19 @@ def edge_csr(dev) -> pt.CSR:
     return pt.CSR.from_scipy(m, device=dev)
 
 
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase0():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line()
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
@@ -2727,6 +2747,309 @@ def phase20(smi):
           f"({' '.join(DET_ARGS)}) in {det_s:.1f} s; cross-check "
           f"{passed} of {len(rows)} cases PASS in {cc_s:.1f} s", flush=True)
 
+# phase 21: the speed drivers at small grids; the hand-written kernels by
+# the names of their CUDA functions (csrc/*.cu), for the profiler trace
+P21_ALG_CELLS = [(1024, 0.1), (512, 0.5)]
+P21_DENSE = ["--size", "1024", "2048", "--density", "0.001", "0.01", "0.1",
+             "--runs", "5", "--busy-calls", "2"]
+P21_SPMV = ["--size", "512", "--density", "0.1", "--runs", "3"]
+P21_PROFILE = ["--size", "1024", "--density", "0.1", "--runs", "5",
+               "--busy-calls", "2"]
+P21_ERROR = ["error", "--sizes", "256", "512", "--densities", "0.1", "0.5"]
+P21_FRACTION = ["fraction", "--size", "512", "--density", "0.1", "--ref",
+                "f64"]
+NE_TOL = 1e-6  # max |C1 - C3| (or |C3 - C_f64|) against max|C|
+P21_FLAG = "--phase-21"  # run phase 21 alone, in the process it starts
+P21_TIMEOUT_S = 300
+KERNEL_FUNCS = {
+    "densify_rows": "densify_onehot",
+    "densify_pattern_rows": "densify_onehot_pattern",
+    "extract_tiles": "extract_roll", "binned_spmv": "spmv_binned",
+    "plan_count": "spmv_binned_plan", "plan_place": "spmv_binned_plan",
+    "routed_spmv": "spmv_routed", "spmm_routed": "spmm_routed",
+    "onehot_spmv": "spmv_onehot", "expand_routed": "expand_routed",
+    "compress_routed": "compress_routed", "bsr_spmm": "bsr_spmm",
+    "densify_tiles": "csr_densify_mxu",
+    "segment_sum_inorder": "segment_sum"}
+
+
+# the hand-written kernels each SpGEMM alg's path shows at phase 21's
+# cells (alg3 takes the group engine there, which densifies values only)
+SPGEMM_KERNELS = {1: ("densify_onehot", "extract_roll"),
+                  2: ("densify_onehot", "densify_onehot_pattern",
+                      "extract_roll"),
+                  3: ("densify_onehot", "extract_roll")}
+
+
+def traced_kernels(what, fn, want):
+    """The port's hand-written kernels seen in a profiler trace of 3 calls
+    of `fn` (after one untraced call), or of 20 where that trace came back
+    without device events (as `kernel_counts`); raises where both did, or
+    where a kernel of `want` is not among them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for calls in (3, 20):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    else:
+        raise AssertionError(f"phase 21: the profiler's traces of {what} "
+                             "hold no device event")
+    seen = sorted({port for func, port in KERNEL_FUNCS.items()
+                   if any(func in n for n in names)})
+    missing = [k for k in want if k not in seen]
+    if missing:
+        raise AssertionError(f"phase 21: the trace of {what} lacks {missing} "
+                             f"(it shows {seen})")
+    return seen
+
+
+def run_driver(main, argv):
+    """(JSON rows, launches, seconds) of one driver's `main(argv)` on the
+    card through `--json`, the launch counts set to 0 just before it and
+    read just after; its text goes to the JSON lines only."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv + ["--json", "--device", "cuda"])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    rows = [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith("{")]
+    return rows, launches, took
+
+
+def _positive(name, rows, keys):
+    """Every row's `keys` (times on the card's events and from its
+    profiler's traces, bytes) present and positive."""
+    for r in rows:
+        bad = [k for k in keys if not (r.get(k) is not None and r[k] > 0)]
+        if bad:
+            raise AssertionError(f"phase 21: {name} row {r} lacks a "
+                                 f"positive {bad}")
+
+
+def _launched(name, launches, kernels):
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 21: {name} launched none of "
+                             f"{missing} ({launches})")
+
+
+def phase21(dev, smi):
+    """The speed drivers' `main()` at small grids (module docstring, item
+    21); any missing row, non-positive time, product off scipy or error
+    past its gate raises."""
+    from spmm_tpu_torch.benchmarks import (alg_comparison,
+                                           component_profile,
+                                           dense_vs_sparse, spgemm_vs_spmv)
+    from spmm_tpu_torch.experiments import numerical_error
+
+    t_phase = time.perf_counter()
+    out = {}
+    # alg_comparison: one call of main per cell (a cell is not a product
+    # of the two lists)
+    alg_rows, alg_launches, alg_s, traces, errs = [], {}, 0.0, {}, {}
+    for size, density in P21_ALG_CELLS:
+        rows, launches, took = run_driver(alg_comparison.main, [
+            "--size", str(size), "--density", str(density), "--runs", "5",
+            "--busy-calls", "2", "--memory", "--device-loop"])
+        cell = f"{size}^2/{density}"
+        if sorted(r["alg"] for r in rows) != [1, 2, 3]:
+            raise AssertionError(f"phase 21: alg_comparison {cell} rows "
+                                 f"{rows}")
+        _positive("alg_comparison alg1", rows[:1], ("serving_ms",))
+        _positive("alg_comparison", rows,
+                  ("median_ms", "per_call_ms", "busy_ms", "delta_hbm_bytes",
+                   "peak_hbm_bytes", "cusparse_ms"))
+        a, b = alg_comparison.operands(size, density, 2008, dev)
+        cs = alg_comparison.products(a, b, (1, 2, 3), 0.2)
+        ref = ScipyRef(a, b)
+        for alg, c in cs.items():
+            errs[f"{cell} alg{alg}"] = ref.check(
+                f"phase 21 alg_comparison {cell} alg{alg}", c)
+            if not (same_bits(c.indptr, cs[1].indptr)
+                    and same_bits(c.indices, cs[1].indices)):
+                raise AssertionError(f"phase 21: {cell} alg{alg}'s "
+                                     "structure differs from alg1's")
+        for alg in (1, 2, 3):
+            traces[f"{cell} alg{alg}"] = traced_kernels(
+                f"alg{alg} at {cell}",
+                lambda alg=alg: pt.spgemm(a, b, alg=alg,
+                                          chunk_fraction=0.2),
+                SPGEMM_KERNELS[alg])
+        del a, b, cs, ref
+        alg_rows += rows
+        alg_s += took
+        for k, v in launches.items():
+            alg_launches[k] = alg_launches.get(k, 0) + v
+    _launched("alg_comparison", alg_launches,
+              ("densify_onehot", "extract_roll", "densify_onehot_pattern"))
+    out["alg_comparison"] = (len(alg_rows), alg_launches, alg_s, traces)
+    for r in alg_rows:
+        print(f"phase 21 [{smi}]: alg_comparison {r['size']}^2/"
+              f"{r['density']} alg{r['alg']} ({r['engine']}): "
+              f"{r['median_ms']:.4f} ms (back to back "
+              f"{r['per_call_ms']:.4f}), busy {r['busy_ms']:.4f}, ΔPeak "
+              f"{r['delta_hbm_bytes'] / 2**20:.1f} MB, fresh peak "
+              f"{r['peak_hbm_bytes'] / 2**20:.1f} MB, torch CSR @ CSR "
+              f"{r['cusparse_ms']:.4f} ms"
+              + (f", CUDA graph {r['serving_ms']:.4f} ms"
+                 if "serving_ms" in r else ""), flush=True)
+    print(f"phase 21: alg 1-3 products of one structure, err/tol vs scipy "
+          f"{json.dumps({k: round(v, 4) for k, v in errs.items()})}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # dense_vs_sparse: every size x density, both sides timed
+    rows, launches, took = run_driver(dense_vs_sparse.main, P21_DENSE)
+    if len(rows) != 6:
+        raise AssertionError(f"phase 21: dense_vs_sparse gave {len(rows)} "
+                             "rows, expected 6")
+    _positive("dense_vs_sparse", rows, ("dense_ms", "sparse_ms",
+                                        "dense_busy_ms", "sparse_busy_ms"))
+    _launched("dense_vs_sparse", launches, ("densify_onehot_pattern",))
+    a = pt.random(2048, 2048, 0.1, format="csr", seed=0, device=dev)
+    b = pt.random(2048, 2048, 0.1, format="csr", seed=1, device=dev)
+    trace = {"alg2 2048^2/0.1": traced_kernels(
+        "alg2 at 2048^2/0.1", lambda: pt.spgemm(a, b, alg=2),
+        SPGEMM_KERNELS[2])}
+    del a, b
+    out["dense_vs_sparse"] = (len(rows), launches, took, trace)
+    print(f"phase 21 [{smi}]: dense_vs_sparse (ms dense / sparse, engine) "
+          + "; ".join(f"{r['size']}/{r['density']}: {r['dense_ms']:.4f} / "
+                      f"{r['sparse_ms']:.4f} {r['engine']}" for r in rows),
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # spgemm_vs_spmv: 9 pairs and 3 SpMV formats, host forked per repeat
+    rows, launches, took = run_driver(spgemm_vs_spmv.main, P21_SPMV)
+    ops = sorted((r["op"], r["pair"]) for r in rows)
+    want = sorted([("spgemm", f"{x}@{y}") for x in spgemm_vs_spmv.FORMATS
+                   for y in spgemm_vs_spmv.FORMATS]
+                  + [("spmv", x) for x in spgemm_vs_spmv.FORMATS])
+    if ops != want:
+        raise AssertionError(f"phase 21: spgemm_vs_spmv rows {ops}")
+    _positive("spgemm_vs_spmv", rows, ("cpu_ms", "cpu_warm_ms", "gpu_ms",
+                                       "gpu_busy_ms"))
+    _launched("spgemm_vs_spmv", launches, ("spmv_binned",))
+    a_cpu = spgemm_vs_spmv.gen_cpu(512, 0.1, "csr", 0)
+    b_cpu = spgemm_vs_spmv.gen_cpu(512, 0.1, "csr", 1)
+    ah, bh = (spgemm_vs_spmv.triplets(x) for x in (a_cpu, b_cpu))
+    v = np.random.default_rng(9).random(512, dtype=np.float32)
+    trace = {"csr@csr": traced_kernels(
+                 "csr@csr at 512^2/0.1", spgemm_vs_spmv.spgemm_op(
+                     ah, bh, (512, 512), "csr", "csr", dev),
+                 SPGEMM_KERNELS[1]),
+             "spmv csr": traced_kernels(
+                 "spmv csr at 512^2/0.1", spgemm_vs_spmv.spmv_op(
+                     ah, (512, 512), "csr", v, dev),
+                 ("spmv_binned", "spmv_binned_plan"))}
+    out["spgemm_vs_spmv"] = (len(rows), launches, took, trace)
+    print(f"phase 21 [{smi}]: spgemm_vs_spmv 512^2/0.1 (cpu first call / "
+          f"cpu warm / gpu ms) "
+          + "; ".join(f"{r['pair']}: {r['cpu_ms']:.3f} / "
+                      f"{r['cpu_warm_ms']:.3f} / {r['gpu_ms']:.3f} (busy "
+                      f"{r['gpu_busy_ms']:.3f})" for r in rows), flush=True)
+
+    # component_profile: every stage, each with its busy time
+    rows, launches, took = run_driver(component_profile.main, P21_PROFILE)
+    if [r["stage"] for r in rows] != list(component_profile.STAGES):
+        raise AssertionError(f"phase 21: component_profile stages "
+                             f"{[r['stage'] for r in rows]}")
+    _positive("component_profile", rows, ("ms", "busy_ms"))
+    _launched("component_profile", launches,
+              ("densify_onehot", "extract_roll", "spmv_binned",
+               "spmm_routed", "densify_onehot_pattern"))
+    a = pt.random(1024, 1024, 0.1, format="csr", seed=0, device=dev)
+    xs = torch.ones((1024, 128), device=dev)
+    trace = {"spmv": traced_kernels(
+                 "spmv at 1024^2/0.1",
+                 lambda: pt.spmv(a, torch.ones(1024, device=dev)),
+                 ("spmv_binned", "spmv_binned_plan")),
+             "spmm csr": traced_kernels(
+                 "spmm at 1024^2/0.1, k = 128", lambda: pt.spmm(a, xs),
+                 ("spmm_routed",))}
+    del a, xs
+    out["component_profile"] = (len(rows), launches, took, trace)
+    print(f"phase 21 [{smi}]: component_profile 1024^2/0.1 (ms, busy) "
+          + "; ".join(f"{r['stage']}: {r['ms']:.4f}, {r['busy_ms']:.4f}"
+                      for r in rows), flush=True)
+    torch.cuda.empty_cache()
+
+    # numerical_error: the heatmap cells and chunk fractions within 1e-6
+    for argv, n_rows in ((P21_ERROR, 4), (P21_FRACTION, 7)):
+        rows, launches, took = run_driver(numerical_error.main, argv)
+        if len(rows) != n_rows:
+            raise AssertionError(f"phase 21: numerical_error {argv[0]} gave "
+                                 f"{len(rows)} rows, expected {n_rows}")
+        over = [r for r in rows
+                if not r["max_err"] <= NE_TOL * r["max_abs_c"]]
+        if over:
+            raise AssertionError(f"phase 21: numerical_error past "
+                                 f"{NE_TOL} max|C|: {over}")
+        _launched(f"numerical_error {argv[0]}", launches,
+                  ("densify_onehot", "extract_roll"))
+        a, b = numerical_error.operands(256, 0.1, 0, dev)
+        trace = {"alg1": traced_kernels(
+                     "alg1 at 256^2/0.1", lambda: pt.spgemm(a, b, alg=1),
+                     SPGEMM_KERNELS[1]),
+                 "alg3 cf=0.3": traced_kernels(
+                     "alg3 cf 0.3 at 256^2/0.1",
+                     lambda: pt.spgemm(a, b, alg=3, chunk_fraction=0.3),
+                     SPGEMM_KERNELS[3])}
+        del a, b
+        out[f"numerical_error {argv[0]}"] = (len(rows), launches, took,
+                                             trace)
+        print(f"phase 21 [{smi}]: numerical_error {argv[0]} "
+              + "; ".join(f"{r['size']}^2/{r['density']} cf "
+                          f"{r['chunk_fraction']}: max err "
+                          f"{r['max_err']:.3e} (max|C| "
+                          f"{r['max_abs_c']:.4g})" for r in rows),
+              flush=True)
+    for name, (n, launches, took, trace) in out.items():
+        print(f"phase 21: {name}: {n} rows in {took:.1f} s; launches "
+              f"{json.dumps(launches)}; kernels traced "
+              f"{json.dumps(trace)}", flush=True)
+    print(f"phase 21 [{smi}]: all drivers in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase21_apart(smi):
+    """Phase 21 in a process of its own: this script with `P21_FLAG`, its
+    output this script's.  In the process that has run phases 0-20 the
+    profiler's traces miss kernels (phase 16's null GEMM times), so the
+    busy times and the traced kernels come from a fresh process, as a
+    driver run from the command line gets them.  A non-zero exit raises."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           P21_FLAG], timeout=P21_TIMEOUT_S)
+    if done.returncode:
+        raise AssertionError(f"phase 21: its process exited "
+                             f"{done.returncode}")
+    print(f"phase 21 [{smi}]: its process took "
+          f"{time.perf_counter() - t0:.1f} s, start included", flush=True)
+
+
+def phase21_main():
+    """The process of phase 21: the card checked, the kernels' library
+    loaded (built by phase 0), then `phase21`."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    _build.library()
+    phase21(torch.device("cuda", 0), card_line())
+
 
 def main():
     smi = phase0()
@@ -2774,6 +3097,8 @@ def main():
     phase19(dev, smi)
     torch.cuda.empty_cache()
     phase20(smi)
+    torch.cuda.empty_cache()
+    phase21_apart(smi)
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
@@ -2884,4 +3209,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == [P21_FLAG]:
+        phase21_main()
+    else:
+        main()

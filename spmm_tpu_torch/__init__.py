@@ -11,8 +11,9 @@ routes, `break_even_density` with its table measured on the card, and
 `A @ x`, `A @ X`, `x @ A`, `X @ A` for every format) in JAX's dtypes and
 precision modes, `sddmm`, CSR indexing and assignment (`A[...]`,
 `A[...] = B`, `setdiag`, `getcol`), the profiler (`utils`), the headline
-script (`python3 -m spmm_tpu_torch.bench`) and the determinism and
-native cross-check suites (`spmm_tpu_torch.experiments`), with eleven
+script (`python3 -m spmm_tpu_torch.bench`), the speed drivers
+(`spmm_tpu_torch.benchmarks`) and the determinism, native cross-check and
+numerical-error suites (`spmm_tpu_torch.experiments`), with eleven
 hand-written CUDA kernels in place of the
 Pallas ones, and two of the port's own (the in-order segment sum and the
 binned SpMV plan), built with `nvcc` for `sm_90a` on first use.  Its

@@ -458,6 +458,32 @@ def _blocked_feasible(a, b) -> bool:
             and (m + 256) * (n + 256) < 2**31)
 
 
+def _check_alg(alg: int, impl: str) -> None:
+    if alg not in (0, 1, 2, 3):
+        raise ValueError(f"unknown alg {alg!r} (expected 0, 1, 2 or 3)")
+    if impl not in ("auto", "dense", "esc"):
+        raise ValueError(f"unknown impl {impl!r}")
+
+
+def _dense_bytes(a, b) -> int:
+    """alg1's dense temporaries: A, B and two m x n products, 4 B each."""
+    m, k = a.shape
+    n = b.shape[1]
+    return 4 * (m * k + k * n + 2 * m * n)
+
+
+def _route(a, b, alg: int, impl: str) -> Tuple[str, int]:
+    """Where `spgemm` sends canonical operands: ("alg1", 1), ("blocked",
+    alg) or ("esc", alg), alg 0 resolved by the dense budget."""
+    if alg in (0, 1):
+        if alg == 1 or _dense_bytes(a, b) <= _DENSE_BUDGET_BYTES:
+            return "alg1", 1
+        alg = 2
+    use_blocked = (impl == "dense"
+                   or (impl == "auto" and _blocked_feasible(a, b)))
+    return ("blocked" if use_blocked and a.nnz and b.nnz else "esc"), alg
+
+
 def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
            verbose: bool = False, precision: str = "highest",
            impl: str = "auto"):
@@ -470,39 +496,53 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
     `impl` selects the alg2/alg3 engine as in the JAX package: "dense"
     and, where A/B dense panels fit the budget, "auto" run the blocked
     dense engines (`ops/spgemm_blocked.py`) when both operands have
-    entries; "esc" and every other case run expand-sort-compress."""
+    entries; "esc" and every other case run expand-sort-compress.
+    `spgemm_engine` names the engine a call runs."""
     a, b = _check_operands(a, b)
-    if alg not in (0, 1, 2, 3):
-        raise ValueError(f"unknown alg {alg!r} (expected 0, 1, 2 or 3)")
-    if impl not in ("auto", "dense", "esc"):
-        raise ValueError(f"unknown impl {impl!r}")
+    _check_alg(alg, impl)
     _check_precision(precision)
     a = a.sum_duplicates()
     b = b.sum_duplicates()
-    if alg in (0, 1):
-        m, k = a.shape
-        n = b.shape[1]
-        dense_bytes = 4 * (m * k + k * n + 2 * m * n)
-        if alg == 1 or dense_bytes <= _DENSE_BUDGET_BYTES:
-            if verbose:
-                print(f"[spgemm] alg1 dense-intermediate ({dense_bytes} B)")
-            return _spgemm_alg1(a, b, alpha, precision)
+    route, resolved = _route(a, b, alg, impl)
+    if route == "alg1":
         if verbose:
-            print("[spgemm] auto: dense footprint too large → alg2")
-        alg = 2
-    use_blocked = (impl == "dense"
-                   or (impl == "auto" and _blocked_feasible(a, b)))
-    if use_blocked and a.nnz and b.nnz:
+            print(f"[spgemm] alg1 dense-intermediate ({_dense_bytes(a, b)} "
+                  "B)")
+        return _spgemm_alg1(a, b, alpha, precision)
+    if verbose and alg == 0:
+        print("[spgemm] auto: dense footprint too large → alg2")
+    if route == "blocked":
         from spmm_tpu_torch.ops import spgemm_blocked as blocked
 
-        if alg == 2:
+        if resolved == 2:
             return blocked.spgemm_alg2_blocked(a, b, alpha, precision,
                                                verbose)
         return blocked.spgemm_alg3_blocked(a, b, alpha, chunk_fraction,
                                            precision, verbose)
-    if alg == 2:
+    if resolved == 2:
         return _spgemm_alg2_esc(a, b, alpha)
     return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)
+
+
+def spgemm_engine(a, b, alg: int = 0, chunk_fraction: float = 0.2) -> str:
+    """The engine `spgemm(a, b, alg=alg, chunk_fraction=chunk_fraction)`
+    runs, by the rules its dispatch follows (`_route`,
+    `spgemm_blocked.alg2_engine`, `spgemm_blocked.alg3_engine`): "alg1",
+    "esc", alg2's "unrolled" or "scan", or alg3's "group", "unrolled",
+    "scan3" or "scan2".  It computes no product; alg3's blocked rule reads
+    the operands' indices to the host."""
+    a, b = _check_operands(a, b)
+    _check_alg(alg, "auto")
+    a = a.sum_duplicates()
+    b = b.sum_duplicates()
+    route, alg = _route(a, b, alg, "auto")
+    if route != "blocked":
+        return route
+    from spmm_tpu_torch.ops import spgemm_blocked as blocked
+
+    if alg == 2:
+        return blocked.alg2_engine(a.shape[0])
+    return blocked.alg3_engine(a, b, chunk_fraction)
 
 
 def spgemm_fixed(a, b, alpha=1.0, cap: Optional[int] = None,

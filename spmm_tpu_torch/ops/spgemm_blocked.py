@@ -201,6 +201,13 @@ def _alg2_compute(a_indptr_pad, a_indices, a_data, b_indptr, b_indices,
     return _indptr_from_rowc(rowc[:m]), colbuf[:nnz], valbuf[:nnz]
 
 
+def alg2_engine(m: int) -> str:
+    """The engine `spgemm_alg2_blocked` runs for an A of `m` rows:
+    "unrolled" up to `_ALG2_MAX_UNROLL_TILES` row tiles, else "scan"."""
+    T = _round_up(max(m, 1), TILE) // TILE
+    return "unrolled" if T <= _ALG2_MAX_UNROLL_TILES else "scan"
+
+
 def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
                         verbose: bool = False):
     """Balanced blocked SpGEMM; see the module docstring."""
@@ -221,7 +228,7 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
     nnz = int(tilec_h.sum())
     if nnz == 0:
         return _empty_csr(m, n, a.dtype, a.device)
-    if T <= _ALG2_MAX_UNROLL_TILES:
+    if alg2_engine(m) == "unrolled":
         if verbose:
             print(f"[spgemm alg2/blocked] unrolled T={T} nnz={nnz}")
         indptr, cols, vals = _alg2_compute_unrolled(
@@ -731,6 +738,19 @@ def select_alg3_engine(nnz_a: int, nnz_b: int, products: int, T: int,
     return "scan2"
 
 
+def alg3_engine(a, b, chunk_fraction: float, host=None) -> str:
+    """The engine `spgemm_alg3_blocked` picks for A and B at
+    `chunk_fraction` (`select_alg3_engine`); `host` holds A's indptr and
+    indices and B's indptr and indices on the host, read here where it is
+    not given."""
+    _, P, n_pad, _, T = _alg3_grid(a.shape[0], b.shape[1], chunk_fraction)
+    if host is None:
+        host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
+    products = (int(np.diff(host[2])[host[1]].sum())
+                if a.nnz and b.nnz else 0)
+    return select_alg3_engine(a.nnz, b.nnz, products, T, P, n_pad)
+
+
 def spgemm_alg3_blocked(a, b, alpha, chunk_fraction: float,
                         precision: str = "highest", verbose: bool = False,
                         unroll: Optional[bool] = None,
@@ -750,9 +770,7 @@ def spgemm_alg3_blocked(a, b, alpha, chunk_fraction: float,
                          f"{_ENGINES})")
     host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
     if engine is None:
-        products = (int(np.diff(host[2])[host[1]].sum())
-                    if a.nnz and b.nnz else 0)
-        engine = select_alg3_engine(a.nnz, b.nnz, products, T, P, n_pad)
+        engine = alg3_engine(a, b, chunk_fraction, host)
     if engine == "scan2":
         return _spgemm_alg3_scan2(a, b, host, alpha, n_b, P, T, m_pad,
                                   n_pad, verbose, precision)

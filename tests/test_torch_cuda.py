@@ -1716,3 +1716,42 @@ def test_csr_loaders_default_to_the_card(dev, tmp_path):
         assert back.device == dev
         _bitwise_csr(back, a)
     assert io.load_npz(prefix + ".npz", device="cpu").device.type == "cpu"
+
+
+@pytest.mark.gpu
+def test_alg_comparison_cell_on_card(dev):
+    """One cell of the speed driver on the card: every alg's row has a
+    positive ΔPeak, fresh-call peak, busy time and time, and the three
+    products agree (one structure, bitwise; values within 1e-6)."""
+    from spmm_tpu_torch.benchmarks import alg_comparison
+
+    rows = alg_comparison.main(["--size", "256", "--density", "0.1",
+                                "--runs", "2", "--warmup", "1",
+                                "--busy-calls", "1", "--memory",
+                                "--device-loop"])
+    assert [r["alg"] for r in rows] == [1, 2, 3]
+    assert rows[0]["serving_ms"] > 0  # alg1 as one CUDA graph
+    for r in rows:
+        for key in ("median_ms", "per_call_ms", "delta_hbm_bytes",
+                    "peak_hbm_bytes", "busy_ms", "cusparse_ms"):
+            assert r[key] > 0, (key, r)
+    a, b = alg_comparison.operands(256, 0.1, 2008, dev)
+    cs = alg_comparison.products(a, b, (1, 2, 3), 0.2)
+    want = cs[1].data.double()
+    atol = 1e-6 * float(want.abs().max())
+    for c in cs.values():
+        assert torch.equal(c.indptr, cs[1].indptr)
+        assert torch.equal(c.indices, cs[1].indices)
+        assert ((c.data.double() - want).abs()
+                <= 1e-6 * want.abs() + atol).all()
+
+
+@pytest.mark.gpu
+def test_numerical_error_within_gate_on_card(dev):
+    from spmm_tpu_torch.experiments import numerical_error
+
+    rows = numerical_error.main(["error", "--sizes", "128", "256",
+                                 "--densities", "0.1", "0.5"])
+    assert len(rows) == 4
+    for r in rows:
+        assert r["max_err"] <= 1e-6 * r["max_abs_c"], r
