@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `spmm_tpu_torch/csrc/` (into
-`build/spmm_tpu_torch/`), then runs twenty-two phases and prints findings
+`build/spmm_tpu_torch/`), then runs twenty-three phases and prints findings
 for each:
 
   0. device and build: torch and CUDA versions, the card's name and power
@@ -164,13 +164,30 @@ for each:
      within the SpGEMM gate of scipy; every max |C1 - C3| within 1e-6
      max|C|; each driver's kernel launches (counts set to 0 just before
      it, read just after) and the hand-written kernels a profiler trace of
-     its path shows, each kernel the path must launch among them.
+     its path shows, each kernel the path must launch among them;
+ 22. distribution (`spmm_tpu_torch.parallel`) at world size 1 under NCCL
+     on cuda:0, in a process of its own (`--phase-22`; one card cannot
+     hold two NCCL ranks, so this shows no scaling): `spmv_sharded` and
+     `spmv_t_sharded` at SpMV 16384^2/5e-3, `spmm_sharded` at SpMM
+     10000^2/0.01 (k = 64), `spgemm_dense_sharded`, `spgemm_sharded_sparse`
+     (ring and all-gather) and SUMMA on a 1x1 mesh at 8192^2/1e-3 (seeds
+     2012/2013), the streamed and blocked SpMV at 2^20/5e-7, and every
+     sparse and dense collective on the SpMV matrix: each within 1e-6 of
+     the single-card `spmv`, `spmm` or `spgemm(alg=1)`, the sparse
+     SpGEMM's structure bitwise alg1's, the streamed SpMV bitwise its
+     blocked twin, each collective's output bitwise its input; launch
+     counts over the path, `densify_onehot`, `extract_roll` and
+     `segment_sum` in a profiler trace, and NCCL's all_gather,
+     all_to_all, broadcast, scatter and all_reduce in another; ms a call,
+     busy ms and peak MB per op.
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
 card could take for the same work and what bounds it, and the time of one
 PyTorch library call computing the same function, where there is one) for
-the eleven TPU kernels' counterparts and the port's own `segment_sum`, and
+the eleven TPU kernels' counterparts and the port's own `spmv_binned_plan`
+and `segment_sum` (phase 22's launches added to those of the kernels it
+runs), and
 as the last line `{"ok": true, "device": {...}}`.  Any failure raises and
 exits non-zero;
 so does a machine without CUDA.  It imports neither jax nor spmm_tpu.
@@ -2781,7 +2798,7 @@ SPGEMM_KERNELS = {1: ("densify_onehot", "extract_roll"),
                   3: ("densify_onehot", "extract_roll")}
 
 
-def traced_kernels(what, fn, want):
+def traced_kernels(what, fn, want, phase="phase 21"):
     """The port's hand-written kernels seen in a profiler trace of 3 calls
     of `fn` (after one untraced call), or of 20 where that trace came back
     without device events (as `kernel_counts`); raises where both did, or
@@ -2800,13 +2817,13 @@ def traced_kernels(what, fn, want):
         if names:
             break
     else:
-        raise AssertionError(f"phase 21: the profiler's traces of {what} "
+        raise AssertionError(f"{phase}: the profiler's traces of {what} "
                              "hold no device event")
     seen = sorted({port for func, port in KERNEL_FUNCS.items()
                    if any(func in n for n in names)})
     missing = [k for k in want if k not in seen]
     if missing:
-        raise AssertionError(f"phase 21: the trace of {what} lacks {missing} "
+        raise AssertionError(f"{phase}: the trace of {what} lacks {missing} "
                              f"(it shows {seen})")
     return seen
 
@@ -3051,6 +3068,276 @@ def phase21_main():
     phase21(torch.device("cuda", 0), card_line())
 
 
+
+# phase 22: distribution at world size 1 under NCCL on the card (NCCL
+# refuses two ranks on one card); each sharded op held against the port's
+# single-card op, in a process of its own as phase 21
+P22_FLAG = "--phase-22"
+P22_TIMEOUT_S = 240
+P22_RUNS = 5
+P22_MARK = "phase 22 launches: "  # the line the parent reads
+# the kernels the phase's path must launch, and show in a profiler trace
+P22_LAUNCHED = ("densify_onehot", "extract_roll", "segment_sum",
+                "spmm_routed")
+P22_TRACED = ("densify_onehot", "extract_roll", "segment_sum")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| (0 for an empty want)."""
+    if want.numel() == 0:
+        return 0.0
+    return max_abs(got, want) / max(float(want.double().abs().max()),
+                                    1e-30)
+
+
+def phase22_cells(dev):
+    """The phase's operands, made from seeds: SpMV 16384^2/5e-3 (seed
+    2014, as phase 4) with x and y N(0,1); SpMM 10000^2/0.01 (2015), k =
+    64; SpGEMM 8192^2/1e-3, seeds 2012/2013 (BASELINE.md:59); the streamed
+    SpMV at 2^20, density 5e-7 (footprint_curve.txt's cell, seed 0)."""
+    rng = np.random.default_rng(2024)
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    mv = pt.random(16384, 16384, 5e-3, format="csr", seed=2014, device=dev)
+    mm = pt.random(10000, 10000, 0.01, format="csr", seed=2015, device=dev)
+    a = pt.random(8192, 8192, 1e-3, format="csr", seed=2012, device=dev)
+    b = pt.random(8192, 8192, 1e-3, format="csr", seed=2013, device=dev)
+    big = pt.random(1 << 20, 1 << 20, 5e-7, format="csr", seed=0,
+                    device=dev)
+    return {"mv": (mv, normal(16384), normal(16384)),
+            "mm": (mm, normal(10000, SPMM_K)), "gemm": (a, b),
+            "stream": (big, normal(1 << 20))}
+
+
+def p22_collectives(a, X, mesh):
+    """Every collective of `parallel.collectives` once, under the group's
+    backend: CSR `a` in the wire format through broadcast, scatter,
+    all_to_all and gather, its sparse all-reduce, the dense all-reduce and
+    reduce-scatter of `X`, and a barrier.  Returns what each gave back, as
+    (CSR, dense, dense)."""
+    from spmm_tpu_torch.parallel import collectives as pc
+
+    parts = pc.pad_csr(a, a.nnz + 4096)
+    wires = [pc.broadcast_csr(parts, mesh, "rows"),
+             pc.scatter_csr([a], mesh, "rows"),
+             tuple(t[0] for t in pc.all_to_all_csr(
+                 tuple(t[None] for t in parts), mesh, "rows"))]
+    csrs = [pc.unpad_csr(*w[:3], int(w[3]), a.shape) for w in wires]
+    csrs += pc.gather_csr(parts, mesh, "rows", shape=a.shape)
+    csrs.append(pc.all_reduce_csr(a, mesh, "rows"))
+    pc.barrier(mesh, "rows")
+    return (csrs, pc.psum_dense(X, mesh, "rows"),
+            pc.reduce_scatter_dense(X, mesh, "rows"))
+
+
+# the collectives the phase's path must hand to the backend, by the names
+# of ProcessGroupNCCL's host events in a profiler trace ("nccl:<name>")
+P22_COLLECTIVES = ("all_gather", "all_to_all", "broadcast", "scatter",
+                   "all_reduce")
+
+
+def backend_calls(fns, backend):
+    """The collectives of one profiler trace of `fns`, by the process
+    group's own host events ("<backend>:<collective>"), and the device
+    events under them (NCCL's kernels and copies).  Raises where a
+    collective of `P22_COLLECTIVES` is not among the host events."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    host = sorted({e.name for e in prof.events()
+                   if e.name.startswith(backend + ":")})
+    device = sorted({e.name[:60] for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and ("nccl" in e.name.lower()
+                          or e.name.startswith("Memcpy"))})
+    missing = [c for c in P22_COLLECTIVES
+               if not any(c in n for n in host)]
+    if missing:
+        raise AssertionError(f"phase 22: no {backend} call of {missing} in "
+                             f"the trace (host: {host}; device: {device})")
+    return host, device
+
+
+def phase22(dev, smi):
+    """Every sharded op of `spmm_tpu_torch.parallel` at world size 1 under
+    NCCL (module docstring, item 22): held against the single-card op,
+    launches counted over the main path, the kernels seen in a profiler
+    trace, ms a call, busy ms and peak MB per op.  Any gap raises."""
+    import tempfile
+
+    from spmm_tpu_torch import parallel as pp
+    from spmm_tpu_torch.parallel import summa
+
+    t_phase = time.perf_counter()
+    cells = phase22_cells(dev)
+    tmp = tempfile.TemporaryDirectory()  # the FileStore's, for the group
+    pp.init_process_group(store_path=os.path.join(tmp.name, "store"),
+                          world_size=1, rank=0)
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"phase 22: the group runs {backend}")
+        mesh, mesh2 = pp.make_mesh(1), summa.make_mesh_2d(1, 1)
+        mv, x, y = cells["mv"]
+        mm, X = cells["mm"]
+        a, b = cells["gemm"]
+        big, xb = cells["stream"]
+        sh_mv = pp.shard_csr(mv, mesh, balance="nnz")
+        sh_mm = pp.shard_csr(mm, mesh, balance="nnz")
+        sh_a, sh_b = pp.shard_csr(a, mesh), pp.shard_csr(b, mesh)
+        sh_big = pp.shard_csr(big, mesh, balance="nnz")
+        plan = pp.spmv_stream_plan(sh_big, mesh)
+        xs = pp.shard_vector(xb, mesh)
+        bd = b.toarray()
+        s_a = pp.shard_csr(a, mesh2, axis="x")
+        s_b = pp.shard_csr(b, mesh2, axis="y")
+        sh_mm.routed_plan()  # made once per shard, as a plan is
+        ops = {
+            "spmv_sharded": lambda: pp.spmv_sharded(sh_mv, x, mesh),
+            "spmv_t_sharded": lambda: pp.spmv_t_sharded(sh_mv, y, mesh),
+            "spmm_sharded": lambda: pp.spmm_sharded(sh_mm, X, mesh),
+            "spgemm_dense_sharded": lambda: pp.spgemm_dense_sharded(
+                sh_a, bd, mesh),
+            "spgemm_sharded_sparse(stream_b)": lambda:
+                pp.spgemm_sharded_sparse(sh_a, sh_b, mesh, stream_b=True),
+            "spgemm_sharded_sparse(all_gather)": lambda:
+                pp.spgemm_sharded_sparse(sh_a, sh_b, mesh, stream_b=False),
+            "spmv_sharded_streamed": lambda: pp.spmv_sharded_streamed(
+                plan, xs, mesh),
+            "spmv_sharded_blocked": lambda: pp.spmv_sharded_blocked(
+                plan, xb, mesh),
+            "spgemm_summa": lambda: pp.spgemm_summa(s_a, s_b, mesh2),
+            "spgemm_summa_sparse": lambda: summa.spgemm_summa_sparse(
+                s_a, s_b, mesh2),
+            "sparse_collectives": lambda: p22_collectives(mv, X, mesh),
+        }
+        # the main path, counted: the counts set to 0 just before it and
+        # read just after
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        outs = {k: fn() for k, fn in ops.items()}
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        missing = [k for k in P22_LAUNCHED if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"phase 22: the path launched none of "
+                                 f"{missing} ({launches})")
+        # the single-card ops on the same operands
+        c1 = pt.spgemm(a, b, alg=1)
+        c1_dense = c1.toarray()
+        errs = {
+            "spmv_sharded": rel_err(outs["spmv_sharded"], pt.spmv(mv, x)),
+            "spmv_t_sharded": rel_err(outs["spmv_t_sharded"],
+                                      pt.spmv(mv, y, transa=True)),
+            "spmm_sharded": rel_err(outs["spmm_sharded"], pt.spmm(mm, X)),
+            "spgemm_dense_sharded": rel_err(outs["spgemm_dense_sharded"],
+                                            c1_dense),
+            "spmv_sharded_streamed": rel_err(outs["spmv_sharded_streamed"],
+                                             pt.spmv(big, xb)),
+            "spgemm_summa": rel_err(outs["spgemm_summa"], c1_dense),
+        }
+        errs["spmv_sharded_blocked"] = errs["spmv_sharded_streamed"]
+        for k in ("spgemm_sharded_sparse(stream_b)",
+                  "spgemm_sharded_sparse(all_gather)"):
+            c = pp.sharded_to_csr(outs[k])
+            if not (same_bits(c.indptr, c1.indptr)
+                    and same_bits(c.indices, c1.indices)):
+                raise AssertionError(f"phase 22: {k}'s structure is not "
+                                     "alg1's")
+            errs[k] = rel_err(c.data, c1.data)
+        kept = c1.data != 0  # the block compression keeps the nonzeros
+        cs = summa.summa_blocks_to_csr(outs["spgemm_summa_sparse"],
+                                       c1.shape, mesh2)
+        if not same_bits(cs.indices, c1.indices[kept]):
+            raise AssertionError("phase 22: the SUMMA blocks' structure is "
+                                 "not alg1's")
+        errs["spgemm_summa_sparse"] = rel_err(cs.data, c1.data[kept])
+        csrs, psum, rsc = outs["sparse_collectives"]
+        for c in csrs:  # moved bits, summed from +0.0 by the all-reduce
+            if not (same_bits(c.indptr, mv.indptr)
+                    and same_bits(c.indices, mv.indices)
+                    and same_bits(c.data, mv.data + 0)):
+                raise AssertionError("phase 22: a CSR collective changed "
+                                     "the matrix")
+        if not (same_bits(psum, X) and same_bits(rsc, X)):
+            raise AssertionError("phase 22: a dense collective changed X")
+        errs["sparse_collectives"] = 0.0
+        if not same_bits(outs["spmv_sharded_streamed"],
+                         outs["spmv_sharded_blocked"]):
+            raise AssertionError("phase 22: the streamed SpMV is not bitwise "
+                                 "its blocked twin")
+        bad = {k: v for k, v in errs.items() if not v <= RTOL}
+        if bad:
+            raise AssertionError(f"phase 22: past 1e-6 of the single-card "
+                                 f"op: {bad}")
+        seen = traced_kernels("phase 22's sparse SpGEMM and SpMV", lambda: (
+            ops["spgemm_sharded_sparse(stream_b)"](),
+            ops["spmv_sharded"]()), P22_TRACED, phase="phase 22")
+        host, device = backend_calls(list(ops.values()), backend)
+        cell = {"spmv_sharded": "16384^2/5e-3",
+                "spmv_t_sharded": "16384^2/5e-3",
+                "spmm_sharded": "10000^2/0.01 k=64",
+                "spmv_sharded_streamed": "2^20/5e-7",
+                "spmv_sharded_blocked": "2^20/5e-7",
+                "sparse_collectives": "16384^2/5e-3, X 10000x64"}
+        del outs
+        for name, fn in ops.items():
+            row = {"op": name, "cell": cell.get(name, "8192^2/1e-3"),
+                   "world_size": 1, "backend": backend,
+                   "ms": median_ms(fn, runs=P22_RUNS, warmup=1),
+                   "busy_ms": device_profile(fn, calls=3)[0],
+                   "peak_mb": peak_mb(fn), "rel_err": errs[name]}
+            print(f"phase 22 [{smi}]: " + json.dumps(row), flush=True)
+        print(f"phase 22 [{smi}]: one NCCL rank on cuda:0, NCCL "
+              f"{torch.cuda.nccl.version()} (D = 1: no scaling to show; the "
+              "rings make no hop at D = 1 and a self pair is a local copy, "
+              f"so no P2P op runs); NCCL calls traced {host}, their device "
+              f"events {device}; kernels traced {seen}; streamed SpMV "
+              "bitwise blocked; sparse SpGEMM structure bitwise alg1's; "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        print(P22_MARK + json.dumps(launches), flush=True)
+    finally:
+        pp.destroy_process_group()
+        tmp.cleanup()
+
+
+def phase22_apart(smi):
+    """Phase 22 in a process of its own (this script with `P22_FLAG`):
+    NCCL's group and the profiler's traces start fresh there, as in a
+    distributed program run from the command line.  Its output is this
+    script's; returns its launch counts.  A non-zero exit raises."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           P22_FLAG], timeout=P22_TIMEOUT_S,
+                          stdout=subprocess.PIPE, text=True)
+    sys.stdout.write(done.stdout)
+    if done.returncode:
+        raise AssertionError(f"phase 22: its process exited "
+                             f"{done.returncode}")
+    line = next(ln for ln in done.stdout.splitlines()
+                if ln.startswith(P22_MARK))
+    print(f"phase 22 [{smi}]: its process took "
+          f"{time.perf_counter() - t0:.1f} s, start included", flush=True)
+    return json.loads(line[len(P22_MARK):])
+
+
+def phase22_main():
+    """The process of phase 22: the card checked, the kernels' library
+    loaded (built by phase 0), then `phase22`."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    _build.library()
+    phase22(torch.device("cuda", 0), card_line())
+
+
 def main():
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -3099,6 +3386,7 @@ def main():
     phase20(smi)
     torch.cuda.empty_cache()
     phase21_apart(smi)
+    launches22 = phase22_apart(smi)
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
@@ -3120,10 +3408,13 @@ def main():
                 "bound_by": least[1], "library_ms": library_ms}
 
     # bytes: each input read once, each output written once (dense outputs
-    # whole, zeros included); sparse inputs as CSR (int32 indices, f32)
+    # whole, zeros included); sparse inputs as CSR (int32 indices, f32).
+    # Launches: each main path's, phase 22's distributed path added
+    l22 = launches22.get
     kernels = [
         kernel("densify_onehot", "densify.cu", "densify_onehot.py:309",
-               launches["densify_onehot"], err["densify_onehot"],
+               launches["densify_onehot"] + l22("densify_onehot", 0),
+               err["densify_onehot"],
                head["densify_ms"], head["densify_plain_ms"],
                bound(6 * n1 * n1 + 4 * (n1 + 1) + 8 * head["a_nnz"]),
                head["torch_to_dense_ms"]),
@@ -3135,7 +3426,8 @@ def main():
         # the kept values are read, the mask whole; torch has no call that
         # compacts under a mask keeping structural zeros
         kernel("extract_roll", "extract.cu", "extract_roll.py:123",
-               launches["extract_roll"], err["extract_roll"],
+               launches["extract_roll"] + l22("extract_roll", 0),
+               err["extract_roll"],
                head["extract_ms"], head["extract_plain_ms"],
                bound(n1 * n1 + 4 * (n1 + 1) + 12 * head["c_nnz"]), None),
         kernel("spmv_binned", "spmv_binned.cu", "spmv_binned.py:272",
@@ -3147,7 +3439,8 @@ def main():
                t_mv["spmv_routed_ms"], t_mv["spmv_routed_plain_ms"],
                spmv_bound, t_mv["torch_csr_mv_ms"]),
         kernel("spmm_routed", "spmm_routed.cu", "spmv_routed.py:1054",
-               launches5["spmm_routed"], err4["spmm_routed"],
+               launches5["spmm_routed"] + l22("spmm_routed", 0),
+               err4["spmm_routed"],
                t_mm["spmm_routed_ms"], t_mm["spmm_routed_plain_ms"],
                spmm_bound, t_mm["torch_csr_mm_ms"]),
         kernel("spmv_onehot", "spmv_onehot.cu", "spmv_onehot.py:147",
@@ -3193,7 +3486,8 @@ def main():
                "none: the port's own kernel (JAX: jax.ops.segment_sum, "
                "spmm_tpu/ops/_primitives.py:151, and .at[].add, "
                "spmm_tpu/sparse/base.py:293)",
-               launches5["segment_sum"], err4["segment_sum"],
+               launches5["segment_sum"] + l22("segment_sum", 0),
+               err4["segment_sum"],
                t_pl["segment_sum_ms"], t_pl["segment_sum_plain_ms"],
                bound(4 * t_pl["nnz"] + 20 * t_pl["m"], t_pl["nnz"]),
                t_pl["segment_sum_library_ms"]),
@@ -3211,5 +3505,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == [P21_FLAG]:
         phase21_main()
+    elif sys.argv[1:] == [P22_FLAG]:
+        phase22_main()
     else:
         main()

@@ -12,8 +12,10 @@ routes, `break_even_density` with its table measured on the card, and
 precision modes, `sddmm`, CSR indexing and assignment (`A[...]`,
 `A[...] = B`, `setdiag`, `getcol`), the profiler (`utils`), the headline
 script (`python3 -m spmm_tpu_torch.bench`), the speed drivers
-(`spmm_tpu_torch.benchmarks`) and the determinism, native cross-check and
-numerical-error suites (`spmm_tpu_torch.experiments`), with eleven
+(`spmm_tpu_torch.benchmarks`), the determinism, native cross-check and
+numerical-error suites (`spmm_tpu_torch.experiments`) and distribution on
+`torch.distributed` (`spmm_tpu_torch.parallel`: one process per rank,
+row-sharded SpMV, SpMM and SpGEMM, the sparse collectives, SUMMA), with eleven
 hand-written CUDA kernels in place of the
 Pallas ones, and two of the port's own (the in-order segment sum and the
 binned SpMV plan), built with `nvcc` for `sm_90a` on first use.  Its

@@ -1755,3 +1755,223 @@ def test_numerical_error_within_gate_on_card(dev):
     assert len(rows) == 4
     for r in rows:
         assert r["max_err"] <= 1e-6 * r["max_abs_c"], r
+
+
+# ---------------------------------------------------------------------------
+# distribution: world size 1 under NCCL on cuda:0 (one card cannot hold
+# two NCCL ranks), each sharded op against the port's single-card op
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl(tmp_path_factory):
+    """(1-D mesh, 1x1 mesh) of one NCCL rank on cuda:0, for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    from spmm_tpu_torch import parallel as pp
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dev = pp.init_process_group(store_path=str(store), world_size=1, rank=0)
+    try:
+        assert dev == torch.device("cuda", 0)
+        assert torch.distributed.get_backend() == "nccl"
+        yield pp.make_mesh(1), pp.make_mesh_2d(1, 1)
+    finally:
+        pp.destroy_process_group()
+
+
+def _close(got, want, rtol=1e-6):
+    want = want.double()
+    atol = rtol * float(want.abs().max()) if want.numel() else 0.0
+    assert ((got.double() - want).abs() <= rtol * want.abs() + atol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("balance", ["rows", "nnz"])
+def test_sharded_spmv_spmm_on_card(nccl, balance):
+    """spmv_sharded bitwise the CPU's in-order sums and within 1e-6 of
+    spmv; spmm_sharded (spmm_routed) and spmv_t_sharded within 1e-6 of
+    spmm and spmv(transa=True); the kernels launched."""
+    from spmm_tpu_torch import parallel as pp
+
+    mesh, _ = nccl
+    dev = mesh.device
+    a = pt.random(3000, 2000, 0.01, format="csr", seed=3, device=dev)
+    x = torch.rand(2000, device=dev)
+    X = torch.rand(2000, 64, device=dev)
+    sh = pp.shard_csr(a, mesh, balance=balance)
+    _build.reset_launches()
+    y = pp.spmv_sharded(sh, x, mesh)
+    c = pp.spmm_sharded(sh, X, mesh)
+    xt = pp.spmv_t_sharded(sh, torch.rand(3000, device=dev), mesh)
+    assert _build.LAUNCHES["segment_sum"] >= 2
+    assert _build.LAUNCHES["spmm_routed"] == 1
+    cpu = a.to("cpu")
+    want_bits = (cpu.data * x.cpu()[cpu.indices.long()])
+    rows = cpu.indptr
+    from spmm_tpu_torch.ops.kernels.segment_sum import segment_sum_inorder
+
+    assert_bitwise(y, segment_sum_inorder(want_bits, rows[:-1],
+                                          rows[1:] - rows[:-1]))
+    _close(y, pt.spmv(a, x))
+    _close(c, pt.spmm(a, X))
+    assert xt.shape == (2000,)
+    for got, want in ((pp.unshard_rows(y, 3000, sh.row_bounds, mesh), y),
+                      (pp.spmv_sharded(sh, x, mesh), y)):
+        assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+def test_sharded_spmv_t_on_card(nccl):
+    from spmm_tpu_torch import parallel as pp
+
+    mesh, _ = nccl
+    a = pt.random(1500, 900, 0.02, format="csr", seed=4, device=mesh.device)
+    y = torch.rand(1500, device=mesh.device)
+    sh = pp.shard_csr(a, mesh)
+    got = pp.spmv_t_sharded(sh, y, mesh)
+    _close(got, pt.spmv(a, y, transa=True))
+    assert_bitwise(pp.spmv_t_sharded(sh, y, mesh), got)
+
+
+@pytest.mark.gpu
+def test_streamed_spmv_on_card(nccl):
+    """The streamed SpMV (no hop at D = 1) bitwise its blocked twin and its
+    rerun, within 1e-6 of spmv."""
+    from spmm_tpu_torch import parallel as pp
+
+    mesh, _ = nccl
+    a = pt.random(5000, 7000, 2e-3, format="csr", seed=5,
+                  device=mesh.device)
+    x = torch.randn(7000, device=mesh.device)
+    sh = pp.shard_csr(a, mesh, balance="nnz")
+    plan = pp.spmv_stream_plan(sh, mesh)
+    xs = pp.shard_vector(x, mesh)
+    y = pp.spmv_sharded_streamed(plan, xs, mesh)
+    assert_bitwise(y, pp.spmv_sharded_blocked(plan, x, mesh))
+    assert_bitwise(y, pp.spmv_sharded_streamed(plan, xs, mesh))
+    _close(y, pt.spmv(a, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream_b", [True, False])
+def test_sharded_spgemm_on_card(nccl, stream_b):
+    """spgemm_sharded_sparse's structure bitwise alg1's, values within
+    1e-6; spgemm_dense_sharded within 1e-6 of alg1's dense product; the
+    densify, extract and count kernels launched."""
+    from spmm_tpu_torch import parallel as pp
+
+    mesh, _ = nccl
+    dev = mesh.device
+    a = pt.random(1024, 1024, 0.01, format="csr", seed=6, device=dev)
+    b = pt.random(1024, 1024, 0.01, format="csr", seed=7, device=dev)
+    want = pt.spgemm(a, b, alg=1)
+    ash, bsh = pp.shard_csr(a, mesh), pp.shard_csr(b, mesh)
+    _build.reset_launches()
+    c = pp.sharded_to_csr(pp.spgemm_sharded_sparse(ash, bsh, mesh,
+                                                   stream_b=stream_b))
+    dense = pp.spgemm_dense_sharded(ash, b.toarray(), mesh)
+    assert _build.LAUNCHES["densify_onehot"] >= 3
+    assert _build.LAUNCHES["extract_roll"] == 1
+    assert_bitwise(c.indptr, want.indptr)
+    assert_bitwise(c.indices, want.indices)
+    _close(c.data, want.data)
+    _close(dense, want.toarray())
+
+
+@pytest.mark.gpu
+def test_sharded_spgemm_peak_on_card(nccl):
+    """The streamed SpGEMM's peak over one call (max_memory_allocated) at
+    D = 1: at least its two dense panels (values and counts), at most its
+    dense terms (A's rows and their pattern, one B block and its pattern,
+    the panels, the count GEMM's bf16 result and its float32 copy, the
+    mask) and the output, with 50% to spare."""
+    from spmm_tpu_torch import parallel as pp
+
+    mesh, _ = nccl
+    n = 1024
+    a = pt.random(n, n, 0.01, format="csr", seed=6, device=mesh.device)
+    ash = pp.shard_csr(a, mesh)
+    bsh = pp.shard_csr(a, mesh)
+    pp.spgemm_sharded_sparse(ash, bsh, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c = pp.spgemm_sharded_sparse(ash, bsh, mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    panels = 8 * n * n
+    terms = (6 * n * n + 6 * n * n + panels + 6 * n * n + n * n
+             + 12 * c.nnz + 4 * (n + 1))
+    assert panels <= peak <= 1.5 * terms, (peak, panels, terms)
+
+
+@pytest.mark.gpu
+def test_summa_on_card(nccl):
+    """SUMMA on a 1x1 mesh: the dense product within 1e-6 of alg1's, the
+    sparse blocks' CSR with alg1's structure."""
+    from spmm_tpu_torch import parallel as pp
+    from spmm_tpu_torch.parallel import summa
+
+    _, mesh2 = nccl
+    dev = mesh2.device
+    a = pt.random(768, 512, 0.02, format="csr", seed=8, device=dev)
+    b = pt.random(512, 640, 0.02, format="csr", seed=9, device=dev)
+    want = pt.spgemm(a, b, alg=1)
+    ash = pp.shard_csr(a, mesh2, axis="x")
+    for axis in ("x", "y"):
+        bsh = pp.shard_csr(b, mesh2, axis=axis)
+        c = pp.spgemm_summa(ash, bsh, mesh2)
+        _close(c, want.toarray())
+        assert_bitwise(summa.unshard_blocks(c, (768, 640), mesh2), c)
+    blocks = summa.spgemm_summa_sparse(ash, bsh, mesh2)
+    cs = summa.summa_blocks_to_csr(blocks, (768, 640), mesh2)
+    # the block compression keeps the dense product's nonzeros, alg1 its
+    # structural cells: one set where no product cancels exactly
+    nz = want.data != 0
+    assert_bitwise(cs.indices, want.indices[nz])
+    assert_bitwise(cs.indptr, want.indptr)
+    _close(cs.data, want.data[nz])
+
+
+@pytest.mark.gpu
+def test_sparse_collectives_on_card(nccl):
+    """The sparse and dense collectives at one rank under NCCL (its
+    all_gather, all_to_all, broadcast, scatter and all_reduce): the wire
+    round trips, a self pair of ppermute (a local copy: no rank sends to
+    itself), scatter and gather, the sums."""
+    from spmm_tpu_torch import parallel as pp
+    from spmm_tpu_torch.parallel import collectives as pc
+
+    mesh, _ = nccl
+    dev = mesh.device
+    a = pt.random(40, 30, 0.2, format="csr", seed=10, device=dev)
+    parts = pc.pad_csr(a, a.nnz + 5)
+    for out in (pc.ppermute_csr(parts, mesh, "rows", [(0, 0)]),
+                pc.broadcast_csr(parts, mesh, "rows", root=0),
+                pc.scatter_csr([a], mesh, "rows"),
+                tuple(t[0] for t in pc.all_to_all_csr(
+                    tuple(t[None] for t in parts), mesh, "rows"))):
+        back = pc.unpad_csr(*out[:3], int(out[3]), (40, 30))
+        for x, y in ((back.indptr, a.indptr), (back.indices, a.indices),
+                     (back.data, a.data)):
+            assert_bitwise(x, y)
+    s = pc.all_reduce_csr(a, mesh, "rows")
+    assert_bitwise(s.data, a.data + 0)
+    [g] = pc.gather_csr(parts, mesh, "rows", shape=(40, 30))
+    assert_bitwise(g.indices, a.indices)
+    v = torch.rand(16, 3, device=dev)
+    assert_bitwise(pc.psum_dense(v, mesh, "rows"), v)
+    assert_bitwise(pc.reduce_scatter_dense(v, mesh, "rows"), v)
+    assert pc.barrier(mesh, "rows") is None
+
+
+@pytest.mark.gpu
+def test_rank_past_the_cards_refused(dev):
+    """A rank whose cuda:{local_rank} lies past the machine's cards would
+    share one: refused with a worded error before NCCL is reached."""
+    from spmm_tpu_torch.parallel import mesh as pm
+
+    with pytest.raises(ValueError, match="one card"):
+        pm.rank_device(None, local_rank=torch.cuda.device_count())
+    assert pm.rank_device(None, local_rank=0) == torch.device("cuda", 0)
