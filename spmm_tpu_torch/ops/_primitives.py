@@ -10,7 +10,10 @@ of `segsum_tree`), except `segment_sum_rows` on a CUDA tensor (a plain
 version, never on a card path), which adds with atomics.  None of these
 functions reads a value back to the host, apart from `to_host` and
 `to_device`, which move whole int32 arrays in one copy each: sizes that
-depend on the data are passed in by callers that have read them.
+depend on the data are passed in by callers that have read them.  Every
+device-to-host read of the SpGEMM paths goes through `read_host`, which
+opens one `sync.<what>` span (`utils/profiler.span`): a profiled call's
+`sync.*` spans count its host syncs.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from spmm_tpu_torch.ops.kernels.segment_sum import (  # noqa: F401
     segment_sum_inorder)
+from spmm_tpu_torch.utils.profiler import span
 
 INDEX_DTYPE = torch.int32
 
@@ -53,6 +57,8 @@ def scalar_as(x, dtype: torch.dtype):
     number: float32 through `f32`; otherwise through a float64 or
     complex128 tensor cast to `dtype` (a complex value cast to a real dtype
     keeps its real part, with torch's warning)."""
+    if isinstance(x, torch.Tensor):
+        x = read_host(x, "alpha")
     if isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
         x = x.item()
     if dtype == torch.float32 and not isinstance(x, complex):
@@ -247,11 +253,19 @@ def segment_sum_rows(values: torch.Tensor, indptr: torch.Tensor
     return out.index_add_(0, rows, values)
 
 
-def to_host(*tensors: torch.Tensor):
+def read_host(x: torch.Tensor, what: str):
+    """`x` read back to the host inside a `sync.<what>` span: a 0-d
+    tensor's value as a Python number (`item`), any other tensor as a host
+    tensor (`cpu`).  One host sync on a card."""
+    with span("sync." + what):
+        return x.item() if x.dim() == 0 else x.cpu()
+
+
+def to_host(*tensors: torch.Tensor, what: str):
     """Host numpy copies of 1-D int32 tensors of one device, read back in one
-    copy (one host sync on a card)."""
+    copy (one host sync on a card, `read_host`'s `sync.<what>` span)."""
     sizes = [t.numel() for t in tensors]
-    flat = torch.cat(tensors).cpu().numpy()
+    flat = read_host(torch.cat(tensors), what).numpy()
     return np.split(flat, np.cumsum(sizes)[:-1])
 
 

@@ -41,41 +41,46 @@ from spmm_tpu_torch.ops.kernels.route import (
     compress_plan_from_flat, densify_routed, expand_route_plan,
     extract_routed)
 from spmm_tpu_torch.ops.spgemm import _check_precision, _value_matmul
+from spmm_tpu_torch.utils.profiler import span
 
 
 def _structural_product(a, b) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host structural product: (indptr, indices, flat_positions) of the
     pattern of A @ B (counts > 0, explicit zeros structural: the alg1 mask
-    semantics, `spgemm._alg1_dense_compute`)."""
-    m, k = a.shape
-    n = b.shape[1]
-    ai, aj, bi, bj = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
-    try:
-        import scipy.sparse as sp
+    semantics, `spgemm._alg1_dense_compute`), in the span
+    `spgemm.structure`."""
+    with span("spgemm.structure"):
+        m, k = a.shape
+        n = b.shape[1]
+        ai, aj, bi, bj = prim.to_host(a.indptr, a.indices, b.indptr,
+                                      b.indices, what="operands")
+        try:
+            import scipy.sparse as sp
 
-        Pa = sp.csr_matrix(
-            (np.ones(aj.shape[0], np.float64), aj, ai), shape=(m, k))
-        Pb = sp.csr_matrix(
-            (np.ones(bj.shape[0], np.float64), bj, bi), shape=(k, n))
-        C = (Pa @ Pb).tocsr()
-        C.sort_indices()
-        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(C.indptr))
-        flat = rows * n + C.indices.astype(np.int64)
-        return (C.indptr.astype(np.int32), C.indices.astype(np.int32),
-                flat)
-    except ImportError:
-        da = np.zeros((m, k), np.float32)
-        db = np.zeros((k, n), np.float32)
-        rows_a = np.repeat(np.arange(m), np.diff(ai))
-        rows_b = np.repeat(np.arange(k), np.diff(bi))
-        da[rows_a, aj] = 1.0
-        db[rows_b, bj] = 1.0
-        mask = (da @ db) > 0
-        flat = np.flatnonzero(mask.ravel()).astype(np.int64)
-        lens = np.bincount(flat // n, minlength=m)
-        indptr = np.zeros((m + 1,), np.int32)
-        np.cumsum(lens, out=indptr[1:])
-        return indptr, (flat % n).astype(np.int32), flat
+            Pa = sp.csr_matrix(
+                (np.ones(aj.shape[0], np.float64), aj, ai), shape=(m, k))
+            Pb = sp.csr_matrix(
+                (np.ones(bj.shape[0], np.float64), bj, bi), shape=(k, n))
+            C = (Pa @ Pb).tocsr()
+            C.sort_indices()
+            rows = np.repeat(np.arange(m, dtype=np.int64),
+                             np.diff(C.indptr))
+            flat = rows * n + C.indices.astype(np.int64)
+            return (C.indptr.astype(np.int32), C.indices.astype(np.int32),
+                    flat)
+        except ImportError:
+            da = np.zeros((m, k), np.float32)
+            db = np.zeros((k, n), np.float32)
+            rows_a = np.repeat(np.arange(m), np.diff(ai))
+            rows_b = np.repeat(np.arange(k), np.diff(bi))
+            da[rows_a, aj] = 1.0
+            db[rows_b, bj] = 1.0
+            mask = (da @ db) > 0
+            flat = np.flatnonzero(mask.ravel()).astype(np.int64)
+            lens = np.bincount(flat // n, minlength=m)
+            indptr = np.zeros((m + 1,), np.int32)
+            np.cumsum(lens, out=indptr[1:])
+            return indptr, (flat % n).astype(np.int32), flat
 
 
 class SpgemmPlan:
@@ -88,31 +93,33 @@ class SpgemmPlan:
     def __init__(self, a, b, precision: str = "highest",
                  use_routed: Optional[bool] = None):
         del use_routed  # every plan applies on this card (module docstring)
-        _check_precision(precision)
-        a = a.sum_duplicates()
-        b = b.sum_duplicates()
-        m, k = a.shape
-        n = b.shape[1]
-        dev = a.device
-        self.shape = (m, n)
-        self.dtype = a.data.dtype
-        self.precision = precision
-        # JAX computes every plan in float32 (module docstring)
-        self._cast = (a.dtype != torch.float32 or b.dtype != torch.float32)
-        self.nnz_a = int(a.nnz)
-        self.nnz_b = int(b.nnz)
+        with span("spgemm_plan.build"):
+            _check_precision(precision)
+            a = a.sum_duplicates()
+            b = b.sum_duplicates()
+            m, k = a.shape
+            n = b.shape[1]
+            dev = a.device
+            self.shape = (m, n)
+            self.dtype = a.data.dtype
+            self.precision = precision
+            # JAX computes every plan in float32 (module docstring)
+            self._cast = (a.dtype != torch.float32
+                          or b.dtype != torch.float32)
+            self.nnz_a = int(a.nnz)
+            self.nnz_b = int(b.nnz)
 
-        indptr_h, indices_h, flat = _structural_product(a, b)
-        self.nnz = int(flat.size)
-        self._pa = expand_route_plan(a.indptr, a.indices, m, k, dev)
-        self._pb = expand_route_plan(b.indptr, b.indices, k, n, dev)
-        self._pc = compress_plan_from_flat(flat, m, n, dev)
-        if self._pc is not None:
-            self.indptr, self.indices = self._pc.indptr, self._pc.indices
-        else:
-            self.indptr = torch.from_numpy(indptr_h).to(dev)
-            self.indices = torch.from_numpy(indices_h).to(dev)
-        self.routed = (True, True, self._pc is not None)
+            indptr_h, indices_h, flat = _structural_product(a, b)
+            self.nnz = int(flat.size)
+            self._pa = expand_route_plan(a.indptr, a.indices, m, k, dev)
+            self._pb = expand_route_plan(b.indptr, b.indices, k, n, dev)
+            self._pc = compress_plan_from_flat(flat, m, n, dev)
+            if self._pc is not None:
+                self.indptr, self.indices = self._pc.indptr, self._pc.indices
+            else:
+                self.indptr = torch.from_numpy(indptr_h).to(dev)
+                self.indices = torch.from_numpy(indices_h).to(dev)
+            self.routed = (True, True, self._pc is not None)
 
     def _product(self, a_data, b_data, ad=None, bd=None, c=None):
         """Dense alpha-free float32 product A @ B of the given values;
@@ -127,15 +134,20 @@ class SpgemmPlan:
     def __call__(self, a_data, b_data, alpha=1.0):
         from spmm_tpu_torch.sparse.csr import CSR
 
-        vals = self.values(a_data, b_data, alpha)
-        if self._cast:
-            vals = vals.to(self.dtype)
-        return CSR._wrap(self.indptr, self.indices, vals, self.shape,
-                         canonical=True)
+        with span("spgemm_plan.call"):
+            vals = self._values(a_data, b_data, alpha)
+            if self._cast:
+                vals = vals.to(self.dtype)
+            return CSR._wrap(self.indptr, self.indices, vals, self.shape,
+                             canonical=True)
 
     def values(self, a_data, b_data, alpha=1.0) -> torch.Tensor:
         """Just the output value array (CSR order): the minimal per-call
         product for pipelines that keep the static structure elsewhere."""
+        with span("spgemm_plan.call"):
+            return self._values(a_data, b_data, alpha)
+
+    def _values(self, a_data, b_data, alpha):
         self._check_sizes(a_data, b_data)
         if self._pc is None:
             return torch.zeros(0, dtype=torch.float32, device=a_data.device)
@@ -153,57 +165,61 @@ class SpgemmPlan:
         complex (in place), float32 for bfloat16 and float16, returned as
         a new tensor (JAX cannot alias that output onto the buffer
         either)."""
-        self._check_sizes(a_data, b_data)
-        if c_vals.shape[0] != self.nnz:
-            raise ValueError(
-                f"c_vals size {c_vals.shape[0]} != planned nnz {self.nnz}")
-        narrow = torch.promote_types(torch.float32,
-                                     c_vals.dtype) != c_vals.dtype
-        if self._pc is None:
-            return c_vals.to(torch.float32) if narrow else c_vals
-        if narrow:
+        with span("spgemm_plan.call"):
+            self._check_sizes(a_data, b_data)
+            if c_vals.shape[0] != self.nnz:
+                raise ValueError(f"c_vals size {c_vals.shape[0]} != planned "
+                                 f"nnz {self.nnz}")
+            narrow = torch.promote_types(torch.float32,
+                                         c_vals.dtype) != c_vals.dtype
+            if self._pc is None:
+                return c_vals.to(torch.float32) if narrow else c_vals
+            if narrow:
+                return extract_routed(self._product(a_data, b_data), self._pc,
+                                      alpha, c_prev=c_vals.to(torch.float32),
+                                      beta=beta)
+            if c_vals.dtype != torch.float32:
+                vals = extract_routed(self._product(a_data, b_data), self._pc,
+                                      alpha)
+                return c_vals.mul_(prim.f32(beta)).add_(vals)
             return extract_routed(self._product(a_data, b_data), self._pc,
-                                  alpha, c_prev=c_vals.to(torch.float32),
-                                  beta=beta)
-        if c_vals.dtype != torch.float32:
-            vals = extract_routed(self._product(a_data, b_data), self._pc,
-                                  alpha)
-            return c_vals.mul_(prim.f32(beta)).add_(vals)
-        return extract_routed(self._product(a_data, b_data), self._pc,
-                              alpha, c_prev=c_vals, beta=beta, out=c_vals)
+                                  alpha, c_prev=c_vals, beta=beta, out=c_vals)
 
     def values_batch(self, a_vals, b_vals, alpha=1.0) -> torch.Tensor:
         """(K, nnz_a) x (K, nnz_b) -> (K, nnz): K multiplies in a loop over
         one set of dense workspaces (A, B and C each allocated once, as the
         JAX scan keeps one set live).  `alpha` may be a scalar or a (K,)
         vector; a vector on the card is read to the host once."""
-        if a_vals.ndim != 2 or b_vals.ndim != 2:
-            raise ValueError("values_batch expects stacked (K, nnz) arrays")
-        if a_vals.shape[0] != b_vals.shape[0]:
-            raise ValueError(
-                f"batch sizes differ: {a_vals.shape[0]} vs "
-                f"{b_vals.shape[0]}")
-        if a_vals.shape[1] != self.nnz_a or b_vals.shape[1] != self.nnz_b:
-            raise ValueError(
-                f"value array sizes {a_vals.shape[1]}/{b_vals.shape[1]} do "
-                f"not match the planned structures "
-                f"{self.nnz_a}/{self.nnz_b}")
-        K = a_vals.shape[0]
-        dev = a_vals.device
-        if isinstance(alpha, torch.Tensor):
-            alpha = alpha.cpu().numpy()
-        alphas = np.broadcast_to(np.asarray(alpha, np.float32), (K,))
-        out = torch.empty((K, self.nnz), dtype=torch.float32, device=dev)
-        if self._pc is None or K == 0:
+        with span("spgemm_plan.call"):
+            if a_vals.ndim != 2 or b_vals.ndim != 2:
+                raise ValueError(
+                    "values_batch expects stacked (K, nnz) arrays")
+            if a_vals.shape[0] != b_vals.shape[0]:
+                raise ValueError(
+                    f"batch sizes differ: {a_vals.shape[0]} vs "
+                    f"{b_vals.shape[0]}")
+            if (a_vals.shape[1] != self.nnz_a
+                    or b_vals.shape[1] != self.nnz_b):
+                raise ValueError(
+                    f"value array sizes {a_vals.shape[1]}/{b_vals.shape[1]} "
+                    f"do not match the planned structures "
+                    f"{self.nnz_a}/{self.nnz_b}")
+            K = a_vals.shape[0]
+            dev = a_vals.device
+            if isinstance(alpha, torch.Tensor):
+                alpha = prim.read_host(alpha, "alpha")
+            alphas = np.broadcast_to(np.asarray(alpha, np.float32), (K,))
+            out = torch.empty((K, self.nnz), dtype=torch.float32, device=dev)
+            if self._pc is None or K == 0:
+                return out
+            m, n = self.shape
+            ad = torch.empty((m, self._pa.k), dtype=torch.float32, device=dev)
+            bd = torch.empty((self._pb.m, n), dtype=torch.float32, device=dev)
+            c = torch.empty((m, n), dtype=torch.float32, device=dev)
+            for i in range(K):
+                self._product(a_vals[i], b_vals[i], ad, bd, c)
+                extract_routed(c, self._pc, alphas[i], out=out[i])
             return out
-        m, n = self.shape
-        ad = torch.empty((m, self._pa.k), dtype=torch.float32, device=dev)
-        bd = torch.empty((self._pb.m, n), dtype=torch.float32, device=dev)
-        c = torch.empty((m, n), dtype=torch.float32, device=dev)
-        for i in range(K):
-            self._product(a_vals[i], b_vals[i], ad, bd, c)
-            extract_routed(c, self._pc, alphas[i], out=out[i])
-        return out
 
     def _check_sizes(self, a_data, b_data):
         if a_data.shape[0] != self.nnz_a or b_data.shape[0] != self.nnz_b:

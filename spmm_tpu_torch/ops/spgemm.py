@@ -70,6 +70,7 @@ import torch
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels.densify_onehot import densify_onehot
 from spmm_tpu_torch.ops.kernels.extract_roll import extract_roll
+from spmm_tpu_torch.utils.profiler import span
 
 INDEX_DTYPE = prim.INDEX_DTYPE
 
@@ -183,7 +184,7 @@ def _spgemm_alg1(a, b, alpha, precision: str = "highest"):
     m = a.shape[0]
     n = b.shape[1]
     c, mask, nnz_dev = _alg1_dense_compute(a, b, alpha, precision)
-    nnz = int(nnz_dev)  # host sync: the analogue of spMatGetSize
+    nnz = prim.read_host(nnz_dev, "nnz")  # the analogue of spMatGetSize
     indptr, col, data = _dense_extract(c, mask, nnz)
     return CSR._wrap(indptr, col, data, (m, n), canonical=True)
 
@@ -320,14 +321,14 @@ def _spgemm_alg2_esc(a, b, alpha, joined: bool = False):
     if a.nnz == 0 or b.nnz == 0:
         return _empty_csr(m, n, a.dtype, a.device)
     counts, ends = _work_estimation(a.indices, b.indptr)
-    P = int(ends[-1])  # host sync: sizing readback (workEstimation)
+    P = prim.read_host(ends[-1], "products")  # sizing (workEstimation)
     if P == 0:
         return _empty_csr(m, n, a.dtype, a.device)
     _check_products(P, "alg=2")
     row_s, col_s, val_s, nnz_dev = _esc_expand_sort_count(
         a.rows, a.indices, a.data, b.indptr, b.indices, b.data,
         counts, ends, P, m, n, k, joined)
-    nnz_c = int(nnz_dev)  # host sync (spMatGetSize)
+    nnz_c = prim.read_host(nnz_dev, "nnz")  # spMatGetSize
     indptr, out_col, out_val = _compress(row_s, col_s, val_s, alpha, nnz_c,
                                          m)
     return CSR._wrap(indptr, out_col, out_val, (m, n), canonical=True)
@@ -409,7 +410,8 @@ def _spgemm_alg3_esc(a, b, alpha, chunk_fraction: float,
     # last entry is P): the sizing readback
     ip = a.indptr[1:].long()
     row_prod = torch.where(ip > 0, ends[(ip - 1).clamp(min=0)], 0)
-    indptr_h, row_prod_cum = torch.stack([ip, row_prod]).cpu().numpy()
+    indptr_h, row_prod_cum = prim.read_host(torch.stack([ip, row_prod]),
+                                            "row_products").numpy()
     indptr_h = np.concatenate([[0], indptr_h])
     P = int(row_prod_cum[-1])
     if P == 0:
@@ -435,7 +437,8 @@ def _spgemm_alg3_esc(a, b, alpha, chunk_fraction: float,
         print(f"[spgemm alg3] P={P} chunks={len(chunk_meta)} "
               f"E={E} W={W} chunk_fraction={chunk_fraction}")
     counts_c = _alg3_esc_count(a, b, chunk_meta, m, n)
-    counts_h = counts_c.cpu().numpy()  # ONE sizing readback for all chunks
+    # ONE sizing readback for all chunks
+    counts_h = prim.read_host(counts_c, "chunk_counts").numpy()
     total = int(counts_h.sum())
     if total == 0:
         return _empty_csr(m, n, a.dtype, a.device)
@@ -497,31 +500,42 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
     and, where A/B dense panels fit the budget, "auto" run the blocked
     dense engines (`ops/spgemm_blocked.py`) when both operands have
     entries; "esc" and every other case run expand-sort-compress.
-    `spgemm_engine` names the engine a call runs."""
-    a, b = _check_operands(a, b)
-    _check_alg(alg, impl)
-    _check_precision(precision)
-    a = a.sum_duplicates()
-    b = b.sum_duplicates()
-    route, resolved = _route(a, b, alg, impl)
-    if route == "alg1":
-        if verbose:
-            print(f"[spgemm] alg1 dense-intermediate ({_dense_bytes(a, b)} "
-                  "B)")
-        return _spgemm_alg1(a, b, alpha, precision)
-    if verbose and alg == 0:
-        print("[spgemm] auto: dense footprint too large → alg2")
-    if route == "blocked":
-        from spmm_tpu_torch.ops import spgemm_blocked as blocked
+    `spgemm_engine` names the engine a call runs.
 
+    A call is the root span `spgemm`, its engine the child span
+    `spgemm.alg1`, `spgemm.alg2.blocked`, `spgemm.alg3.blocked`,
+    `spgemm.alg2.esc` or `spgemm.alg3.esc` (`utils/profiler.span`)."""
+    with span("spgemm"):
+        a, b = _check_operands(a, b)
+        _check_alg(alg, impl)
+        _check_precision(precision)
+        a = a.sum_duplicates()
+        b = b.sum_duplicates()
+        route, resolved = _route(a, b, alg, impl)
+        if route == "alg1":
+            if verbose:
+                print(f"[spgemm] alg1 dense-intermediate "
+                      f"({_dense_bytes(a, b)} B)")
+            with span("spgemm.alg1"):
+                return _spgemm_alg1(a, b, alpha, precision)
+        if verbose and alg == 0:
+            print("[spgemm] auto: dense footprint too large → alg2")
+        if route == "blocked":
+            from spmm_tpu_torch.ops import spgemm_blocked as blocked
+
+            if resolved == 2:
+                with span("spgemm.alg2.blocked"):
+                    return blocked.spgemm_alg2_blocked(a, b, alpha,
+                                                       precision, verbose)
+            with span("spgemm.alg3.blocked"):
+                return blocked.spgemm_alg3_blocked(a, b, alpha,
+                                                   chunk_fraction,
+                                                   precision, verbose)
         if resolved == 2:
-            return blocked.spgemm_alg2_blocked(a, b, alpha, precision,
-                                               verbose)
-        return blocked.spgemm_alg3_blocked(a, b, alpha, chunk_fraction,
-                                           precision, verbose)
-    if resolved == 2:
-        return _spgemm_alg2_esc(a, b, alpha)
-    return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)
+            with span("spgemm.alg2.esc"):
+                return _spgemm_alg2_esc(a, b, alpha)
+        with span("spgemm.alg3.esc"):
+            return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)
 
 
 def spgemm_engine(a, b, alg: int = 0, chunk_fraction: float = 0.2) -> str:

@@ -218,13 +218,14 @@ def spgemm_alg2_blocked(a, b, alpha, precision: str = "highest",
     alpha = prim.scalar_as(alpha, a.dtype)
     m_pad = _round_up(max(m, 1), TILE)
     T = m_pad // TILE
-    (a_indptr_h,) = prim.to_host(a.indptr)
+    (a_indptr_h,) = prim.to_host(a.indptr, what="indptr")
     a_indptr_h = _pad_indptr_h(a_indptr_h, m_pad)
     a_indptr = _pad_indptr(a.indptr, m_pad)
     rowc, tilec, mask = _alg2_count(a_indptr, a.indices, b.indptr, b.indices,
                                     m_pad, k, n, T)
     del rowc
-    (tilec_h,) = prim.to_host(tilec)  # sizing readback (spMatGetSize)
+    # sizing readback (spMatGetSize)
+    (tilec_h,) = prim.to_host(tilec, what="tile_counts")
     nnz = int(tilec_h.sum())
     if nnz == 0:
         return _empty_csr(m, n, a.dtype, a.device)
@@ -691,7 +692,8 @@ def _spgemm_alg3_scan2(a, b, host, alpha, n_b: int, P: int, T: int,
                                         P)
     else:
         rowc, blockc = _alg3_count(blocks, T, P)
-    blockc_h = prim.to_host(blockc.reshape(-1))[0].reshape(P, T)  # sizing
+    blockc_h = prim.to_host(blockc.reshape(-1),  # sizing
+                            what="block_counts")[0].reshape(P, T)
     nnz = int(blockc_h.sum())
     if nnz == 0:
         return _empty_csr(m, n, a.dtype, a.device)
@@ -745,7 +747,8 @@ def alg3_engine(a, b, chunk_fraction: float, host=None) -> str:
     not given."""
     _, P, n_pad, _, T = _alg3_grid(a.shape[0], b.shape[1], chunk_fraction)
     if host is None:
-        host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
+        host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices,
+                            what="operands")
     products = (int(np.diff(host[2])[host[1]].sum())
                 if a.nnz and b.nnz else 0)
     return select_alg3_engine(a.nnz, b.nnz, products, T, P, n_pad)
@@ -768,7 +771,8 @@ def spgemm_alg3_blocked(a, b, alpha, chunk_fraction: float,
     if engine is not None and engine not in _ENGINES:
         raise ValueError(f"unknown alg3 engine {engine!r} (expected one of "
                          f"{_ENGINES})")
-    host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices)
+    host = prim.to_host(a.indptr, a.indices, b.indptr, b.indices,
+                        what="operands")
     if engine is None:
         engine = alg3_engine(a, b, chunk_fraction, host)
     if engine == "scan2":
