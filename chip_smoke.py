@@ -1734,8 +1734,10 @@ def alg2_passes(a, b):
 
 def alg3_passes(a, b, cf, engine):
     """(count pass, numeric pass) of the group and scan2 alg3 engines over
-    inputs prepared once: the group engine counts with the host structural
-    product, scan2 with its device sizing pass."""
+    inputs prepared once: the group engine's host-structure path counts
+    with the host structural product, scan2 with its device sizing pass.
+    (Where one staging group holds every tile, the group engine sizes from
+    its staged mask inside the numeric work and has no count pass apart.)"""
     m, k = a.shape
     n = b.shape[1]
     n_b, P, _, m_pad, T = bl._alg3_grid(m, n, cf)

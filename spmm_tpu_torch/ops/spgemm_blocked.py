@@ -23,9 +23,12 @@ selection rules and constants, so the same inputs take the same engine:
       and mask stripes, extracted in final order), `unrolled` (per-block
       compaction, per-tile merge sort), `scan3` (per-block compaction into
       a production buffer, one gather into final order) and `scan2` (device
-      sizing pass, then per-block compaction and per-tile merge).  The first
-      three take the output structure from the host structural product, as
-      JAX does.
+      sizing pass, then per-block compaction and per-tile merge).  unrolled
+      and scan3 take the output structure from the host structural
+      product, as JAX does; so does group where its tiles take more than
+      one staging group.  Where one group holds every tile, group reads
+      the structure from its staged mask on the device instead: the mask
+      is exact, so the bits are the same.
 
 The value GEMMs are `spgemm._value_matmul` in the `precision` asked for
 (JAX: `jnp.dot(..., precision=)`), in the operands' dtype; the sorts are
@@ -62,6 +65,7 @@ from spmm_tpu_torch.ops.kernels.densify_onehot import (densify_onehot,
 from spmm_tpu_torch.ops.kernels.extract_roll import extract_roll
 from spmm_tpu_torch.ops.serving import _structural_product
 from spmm_tpu_torch.ops.spgemm import _empty_csr, _value_matmul
+from spmm_tpu_torch.utils.profiler import span
 
 INDEX_DTYPE = prim.INDEX_DTYPE
 TILE = 128
@@ -357,55 +361,74 @@ def _alg3_rank(a, b, n_b: int, T: int, n: int):
 # ---------------------------------------------------------------------------
 
 
-def _alg3_compute_group(blocks: _Blocks, alpha, n: int, n_b: int, T: int,
-                        P: int, G: int, nnz: int, tile_caps):
-    """Stage G row tiles as (G*TILE, n) value and mask stripes: each panel's
-    block lands at its final columns, so each tile's values come out in
-    final CSR order with one `extract_roll` and no sort.  B panels are
+def _alg3_stage(blocks: _Blocks, n: int, n_b: int, P: int, g0: int,
+                Gt: int, tile_caps=None):
+    """Row tiles g0 .. g0 + Gt - 1 staged as (Gt*TILE, n) value and mask
+    stripes: each panel's block lands at its final columns.  An empty tile,
+    or one whose cap in `tile_caps` is 0, stays zero.  B panels are
     densified again for every group (the time-memory knob)."""
     k = blocks.k
-    offs = np.concatenate([[0], np.cumsum(tile_caps)])
     dev = blocks.b_vals.device
-    vals = torch.zeros(nnz, dtype=blocks.b_vals.dtype, device=dev)
+    stage_v = torch.zeros((Gt * TILE, n), dtype=blocks.b_vals.dtype,
+                          device=dev)
+    stage_m = torch.zeros((Gt * TILE, n), dtype=torch.bool, device=dev)
+    for p in range(P):
+        panel = blocks.panel(p)
+        if panel is None:
+            continue
+        c0 = p * n_b
+        w = min(n_b, n - c0)
+        for ti in range(Gt):
+            tile = blocks.tile(g0 + ti)
+            if tile is None or (tile_caps is not None
+                                and tile_caps[g0 + ti] == 0):
+                continue
+            ct, mask = _block(tile, panel, k, blocks.precision)
+            rows = slice(ti * TILE, (ti + 1) * TILE)
+            stage_v[rows, c0:c0 + w] = ct[:, :w]
+            stage_m[rows, c0:c0 + w] = mask[:, :w]
+            del ct, mask
+        del panel
+    return stage_v, stage_m
+
+
+def _extract_stage_values(stage_v, stage_m, caps, offs, alpha, vals):
+    """Each staged tile's values, in final CSR order (one `extract_roll`
+    and no sort), times alpha into vals[offs[t]:offs[t] + caps[t]]."""
+    for t, cap_t in enumerate(caps):
+        if cap_t == 0:
+            continue
+        rows = slice(t * TILE, (t + 1) * TILE)
+        # only the values are held: a tile's columns would stay alive
+        # into the next tile's extraction
+        vals_t = extract_roll(stage_v[rows], stage_m[rows], cap_t)[2]
+        o = int(offs[t])
+        torch.mul(vals_t, alpha, out=vals[o:o + cap_t])
+        del vals_t
+
+
+def _alg3_compute_group(blocks: _Blocks, alpha, n: int, n_b: int, T: int,
+                        P: int, G: int, nnz: int, tile_caps):
+    """Values of the host-structure group engine: G row tiles staged at a
+    time (`_alg3_stage`), each tile extracted under its host-exact cap."""
+    offs = np.concatenate([[0], np.cumsum(tile_caps)])
+    vals = torch.zeros(nnz, dtype=blocks.b_vals.dtype,
+                       device=blocks.b_vals.device)
     for g0 in range(0, T, G):
         Gt = min(G, T - g0)
         if not any(tile_caps[g0:g0 + Gt]):
             continue
-        stage_v = torch.zeros((Gt * TILE, n), dtype=vals.dtype, device=dev)
-        stage_m = torch.zeros((Gt * TILE, n), dtype=torch.bool, device=dev)
-        for p in range(P):
-            panel = blocks.panel(p)
-            if panel is None:
-                continue
-            c0 = p * n_b
-            w = min(n_b, n - c0)
-            for ti in range(Gt):
-                tile = blocks.tile(g0 + ti)
-                if tile is None or tile_caps[g0 + ti] == 0:
-                    continue
-                ct, mask = _block(tile, panel, k, blocks.precision)
-                rows = slice(ti * TILE, (ti + 1) * TILE)
-                stage_v[rows, c0:c0 + w] = ct[:, :w]
-                stage_m[rows, c0:c0 + w] = mask[:, :w]
-                del ct, mask
-            del panel
-        for ti in range(Gt):
-            t = g0 + ti
-            cap_t = tile_caps[t]
-            if cap_t == 0:
-                continue
-            rows = slice(ti * TILE, (ti + 1) * TILE)
-            _, _, vals_t = extract_roll(stage_v[rows], stage_m[rows], cap_t)
-            o = int(offs[t])
-            torch.mul(vals_t, alpha, out=vals[o:o + cap_t])
-            del vals_t
+        stage_v, stage_m = _alg3_stage(blocks, n, n_b, P, g0, Gt, tile_caps)
+        _extract_stage_values(stage_v, stage_m, tile_caps[g0:g0 + Gt],
+                              offs[g0:], alpha, vals)
         del stage_v, stage_m
     return vals
 
 
-def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
-                       m_pad: int, verbose: bool,
-                       precision: str = "highest"):
+def _alg3_group_host(a, b, host, alpha, n_b: int, P: int, T: int, G: int,
+                     m_pad: int, verbose: bool, precision: str):
+    """The group engine over several staging groups (G < T): the output
+    structure and the tile caps from the host structural product."""
     from spmm_tpu_torch.sparse.csr import CSR
 
     m = a.shape[0]
@@ -417,8 +440,6 @@ def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
     bounds = np.minimum(np.arange(T + 1) * TILE, m)
     tile_caps = [int(indptr_h[bounds[t + 1]] - indptr_h[bounds[t]])
                  for t in range(T)]
-    itemsize = a.data.element_size()
-    G = max(1, min(T, _GROUP_STAGING_BYTES // (TILE * n * (itemsize + 1))))
     if verbose:
         print(f"[spgemm alg3/blocked] group T={T} P={P} n_b={n_b} G={G} "
               f"nnz={nnz}")
@@ -427,6 +448,68 @@ def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
                                tile_caps)
     indptr, indices = prim.to_device(a.device, indptr_h, indices_h)
     return CSR._wrap(indptr, indices, vals, (m, n), canonical=True)
+
+
+def _alg3_group_device(a, b, host, alpha, n_b: int, P: int, T: int,
+                       m_pad: int, verbose: bool, precision: str):
+    """The group engine in one staging group (G == T): the staged mask is
+    the output's exact structure, so it sizes the output on the device
+    with one readback of the T tile counts.  The buffers live in turn:
+    the stripes; then the values beside them; then, with the value stripe
+    freed, the columns (the mask's cells, extracted once more), so the
+    output's values and columns never live beside both stripes."""
+    from spmm_tpu_torch.sparse.csr import CSR
+
+    m = a.shape[0]
+    n = b.shape[1]
+    blocks = _Blocks(a, b, host, n_b, P, m_pad, precision)
+    stage_v, stage_m = _alg3_stage(blocks, n, n_b, P, 0, T)
+    del blocks
+    with span("spgemm.structure"):
+        rowc = stage_m.sum(1, dtype=INDEX_DTYPE)
+        indptr = _indptr_from_rowc(rowc[:m])
+        tile_caps = prim.read_host(rowc.view(T, TILE).sum(
+            1, dtype=INDEX_DTYPE), "tile_counts").tolist()
+    nnz = sum(tile_caps)
+    if verbose:
+        print(f"[spgemm alg3/blocked] group T={T} P={P} n_b={n_b} G={T} "
+              f"nnz={nnz}")
+    if nnz == 0:
+        return _empty_csr(m, n, a.dtype, a.device)
+    offs = np.concatenate([[0], np.cumsum(tile_caps)])
+    vals = torch.empty(nnz, dtype=stage_v.dtype, device=stage_v.device)
+    _extract_stage_values(stage_v, stage_m, tile_caps, offs, alpha, vals)
+    del stage_v
+    indices = torch.empty(nnz, dtype=INDEX_DTYPE, device=stage_m.device)
+    for t, cap_t in enumerate(tile_caps):
+        if cap_t == 0:
+            continue
+        mask_t = stage_m[t * TILE:(t + 1) * TILE]
+        # the mask as a 2-byte value operand: only the columns are kept
+        col = extract_roll(mask_t.to(torch.bfloat16), mask_t, cap_t)[1]
+        o = int(offs[t])
+        indices[o:o + cap_t] = col
+        del col
+    del stage_m
+    return CSR._wrap(indptr, indices, vals, (m, n), canonical=True)
+
+
+def _spgemm_alg3_group(a, b, host, alpha, n_b: int, P: int, T: int,
+                       m_pad: int, verbose: bool,
+                       precision: str = "highest"):
+    """Staged full-width stripes, extraction in final order.  G, the tiles
+    a staging group holds, follows from the shapes and the dtype; where
+    one group holds every tile the structure comes from the staged mask,
+    else from the host (holding the output's columns across groups would
+    raise this low-memory engine's peak by 4 bytes an entry)."""
+    n = b.shape[1]
+    itemsize = a.data.element_size()
+    G = max(1, min(T, _GROUP_STAGING_BYTES // (TILE * n * (itemsize + 1))))
+    if G == T:
+        return _alg3_group_device(a, b, host, alpha, n_b, P, T, m_pad,
+                                  verbose, precision)
+    return _alg3_group_host(a, b, host, alpha, n_b, P, T, G, m_pad,
+                            verbose, precision)
 
 
 # ---------------------------------------------------------------------------

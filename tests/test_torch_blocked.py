@@ -123,14 +123,14 @@ CASES = {
 }
 
 
-def _disjoint():
+def _disjoint(m=8):
     """A stores column 0 only, B row 5 only: an empty product of two
     non-empty operands."""
-    a_arr = (np.arange(9, dtype=np.int32), np.zeros(8, np.int32),
-             np.ones(8, np.float32))
+    a_arr = (np.arange(m + 1, dtype=np.int32), np.zeros(m, np.int32),
+             np.ones(m, np.float32))
     b_arr = (np.array([0] * 6 + [1] * 4, np.int32), np.array([2], np.int32),
              np.ones(1, np.float32))
-    a_ref = st.CSR.from_parts(*a_arr, (8, 9), canonical=True)
+    a_ref = st.CSR.from_parts(*a_arr, (m, 9), canonical=True)
     b_ref = st.CSR.from_parts(*b_arr, (9, 7), canonical=True)
     return (a_ref, pt.from_reference(a_ref, device="cpu"), b_ref,
             pt.from_reference(b_ref, device="cpu"))
@@ -138,7 +138,9 @@ def _disjoint():
 
 @pytest.fixture(scope="module")
 def ops():
-    out = {"empty_product": _disjoint()}
+    # over two row tiles: the group engine's host-structure path is
+    # reachable
+    out = {"empty_product": _disjoint(), "empty_product_tall": _disjoint(300)}
     for name, (m, k, n, da, db, seed, kw) in CASES.items():
         a_ref, a = pair(m, k, da, seed, **kw)
         b_ref, b = pair(k, n, db, seed + 100)
@@ -260,6 +262,51 @@ def test_alg3_engines_bitwise(ops, name, cf):
             for e in ENGINES]
     for c in outs[1:]:
         assert_csr_bitwise(c, outs[0])
+
+
+def _no_host_product(a, b):
+    raise AssertionError("the host structural product ran")
+
+
+@pytest.mark.parametrize("alpha", [-0.75, 0.0])
+@pytest.mark.parametrize("name", ["square", "nonsquare", "zeros_empty_rows",
+                                  "wide", "empty_product",
+                                  "empty_product_tall"])
+def test_alg3_group_device_structure_bitwise(ops, jax_runs, monkeypatch,
+                                             name, alpha):
+    """Where one staging group holds every tile (G == T) the group engine
+    sizes its output from the staged mask, without the host structural
+    product: the same structure as JAX's group engine, its values within
+    the GEMM's rounding, and the bits of the port's host-structure path
+    (G < T, forced by a smaller staging budget; at one tile the path
+    itself, there at G == T)."""
+    _, a, _, b = ops[name]
+    m, n = a.shape[0], b.shape[1]
+    cf = 0.3
+    want = jax_runs(name, ("group", cf, alpha), lambda x, y:
+                    jbl.spgemm_alg3_blocked(x, y, alpha, cf, engine="group"))
+    with monkeypatch.context() as mp:
+        mp.setattr(pbl, "_structural_product", _no_host_product)
+        got = pbl.spgemm_alg3_blocked(a, b, alpha, cf, engine="group")
+    assert got.has_canonical_format and got.nnz == want.nnz
+    assert_bitwise(got.indptr, np.asarray(want.indptr))
+    assert_bitwise(got.indices, np.asarray(want.indices))
+    assert_csr_match(got, want)
+    n_b, P, _, m_pad, T = pbl._alg3_grid(m, n, cf)
+    ran = []
+    real = pbl._structural_product
+    monkeypatch.setattr(pbl, "_structural_product",
+                        lambda x, y: ran.append(1) or real(x, y))
+    if T > 1:
+        monkeypatch.setattr(pbl, "_GROUP_STAGING_BYTES", 1)
+        host = pbl.spgemm_alg3_blocked(a, b, alpha, cf, engine="group")
+    else:
+        ops_h = [x.numpy() for x in (a.indptr, a.indices, b.indptr,
+                                     b.indices)]
+        host = pbl._alg3_group_host(a, b, ops_h, alpha, n_b, P, T, 1,
+                                    m_pad, False, "highest")
+    assert ran
+    assert_csr_bitwise(got, host)
 
 
 def test_alg3_blocked_chunk_fraction_struct_invariant(ops):

@@ -1149,6 +1149,42 @@ def test_blocked_host_syncs_do_not_grow_with_blocks(dev, monkeypatch):
             == _host_syncs(lambda: pt.spgemm(*large, alg=2)))
 
 
+@pytest.mark.gpu
+def test_group_device_structure_peak_on_card(dev):
+    """At 1024^2/0.1, cf 0.2 one staging group holds all 8 tiles: the
+    group engine sizing its output from the staged mask peaks no higher
+    over one call (max_memory_allocated) than the host-structure path at
+    the same G, and gives its bits.  It frees the value stripe before it
+    allocates the output's columns; allocating both of the output's
+    arrays beside both stripes would peak above the host path."""
+    from spmm_tpu_torch.ops import spgemm_blocked as bl
+
+    n = 1024
+    a = pt.random(n, n, 0.1, format="csr", seed=31, device=dev)
+    b = pt.random(n, n, 0.1, format="csr", seed=32, device=dev)
+    n_b, P, _, m_pad, T = bl._alg3_grid(n, n, 0.2)
+    host = [x.cpu().numpy() for x in (a.indptr, a.indices, b.indptr,
+                                      b.indices)]
+    G = bl._GROUP_STAGING_BYTES // (bl.TILE * n * 5)
+    assert G >= T == 8
+
+    def peak(fn):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+
+    on_card, c = peak(lambda: bl.spgemm_alg3_blocked(a, b, 1.0, 0.2,
+                                                     engine="group"))
+    on_host, want = peak(lambda: bl._alg3_group_host(
+        a, b, host, 1.0, n_b, P, T, T, m_pad, False, "highest"))
+    assert on_card <= on_host, (on_card, on_host)
+    _bitwise_csr(c, want)
+
+
 # ---------------------------------------------------------------------------
 # the containers slice: bsr_spmm, csr_densify_mxu, the in-order sum
 # ---------------------------------------------------------------------------

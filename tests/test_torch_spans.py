@@ -135,11 +135,12 @@ def test_entry_records_its_spans_roots_and_syncs(kind):
     assert spans == {root} | engines
     assert roots(tot) == tot[root]["roots"] == tot[root]["count"] == calls
     # ESC alg2 reads back its product count and its output count; alg3's
-    # group engine reads A's and B's indices twice, once for its engine
-    # rule and once in the host structural product
+    # group engine, in one staging group, reads A's and B's indices once
+    # for its engine rule and its tile counts once, in `spgemm.structure`
     assert sync_count(tot) == syncs * calls
     if kind == "alg3-group":
-        assert tot["sync.operands"]["count"] == 2 * calls
+        assert tot["sync.operands"]["count"] == calls
+        assert tot["sync.tile_counts"]["count"] == calls
     names = {e[0] for e in host_events(prof)}
     assert set(tot) <= names
     for name in engines:
