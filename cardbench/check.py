@@ -1,6 +1,7 @@
 """The numbers that decide `correct`, and their verdict.
 
-For each compared answer, a CSR (indptr, indices, data) against the plain
+An answer is of one of two kinds, read from what the entry's `answer`
+returns.  A CSR, a tuple (indptr, indices, data), against the plain
 reference's:
 
 * `structure_mismatch`: indptr entries that differ, plus indices that
@@ -9,6 +10,13 @@ reference's:
 * `value_err`: max |c - r| / max |r| over the entries, where the structures
   agree (None, and a failure, where they do not).
 
+A dense answer, a tensor, against the reference's:
+
+* `shape_mismatch`: the difference of the element counts, or 1 where the
+  counts agree and the shapes do not.  Exact: the limit is 0.
+* `value_err`: max |y - r| / max |r| in float64, where the shapes agree.
+
+A number that reads NaN is no number (None), and fails its limit.
 Besides: `failed`, the calls that raised (limit 0), and `uncompared`, the
 sample times that got no answer of their own (at most all but one).
 Every limit is an upper one.
@@ -16,9 +24,14 @@ Every limit is an upper one.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+
+# the numbers of each kind of answer, as a cell's limits name them
+KINDS = {"csr": ("structure_mismatch", "value_err"),
+         "dense": ("shape_mismatch", "value_err")}
 
 
 def numbers(got, ref) -> Dict[str, Optional[float]]:
@@ -40,6 +53,44 @@ def numbers(got, ref) -> Dict[str, Optional[float]]:
             "value_err": err / scale if scale else err}
 
 
+def dense(got: torch.Tensor, ref: torch.Tensor
+          ) -> Dict[str, Optional[float]]:
+    g, r = got.to(torch.float64), ref.to(torch.float64)
+    if g.shape != r.shape:
+        return {"shape_mismatch": float(abs(g.numel() - r.numel()) or 1),
+                "value_err": None}
+    scale = float(r.abs().max()) if r.numel() else 0.0
+    err = float((g - r).abs().max()) if r.numel() else 0.0
+    return {"shape_mismatch": 0.0,
+            "value_err": err / scale if scale else err}
+
+
+def host(answer):
+    """An answer, or a reference's, on the host."""
+    if isinstance(answer, torch.Tensor):
+        return answer.cpu()
+    return tuple(x.cpu() for x in answer)
+
+
+def numbers_of(got, ref) -> Dict[str, Optional[float]]:
+    """The numbers of an answer of either kind; NaN reads None."""
+    found = (dense if isinstance(got, torch.Tensor) else numbers)(got, ref)
+    return {name: None if value is not None and math.isnan(value) else value
+            for name, value in found.items()}
+
+
+def over(c: dict) -> bool:
+    """A check, {"value", "limit"}, that fails: no number, or over."""
+    return c["value"] is None or c["value"] > c["limit"]
+
+
+def numbers_over(checks: dict) -> list:
+    """The names of a result's numbers of the answers (not `failed`, not
+    `uncompared`) that fail their limits."""
+    return [name for name, c in checks.items()
+            if name not in ("failed", "uncompared") and over(c)]
+
+
 def judge(seen: dict, limits: dict, failed: int, samples: int
           ) -> Tuple[bool, list, dict]:
     """(correct, lines for standard error, the result's `checks`)."""
@@ -51,7 +102,7 @@ def judge(seen: dict, limits: dict, failed: int, samples: int
     ok = True
     lines = []
     for name, c in checks.items():
-        good = c["value"] is not None and c["value"] <= c["limit"]
+        good = not over(c)
         ok &= good
         lines.append(f"check {name} {c['value']} limit {c['limit']} "
                      f"{'ok' if good else 'FAILED'}")

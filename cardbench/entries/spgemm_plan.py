@@ -5,12 +5,14 @@ fixed structures, as AMG re-setup and time stepping send them.
 Traffic parameters: `pool`, the number of value pairs, and
 `pool_seed_offset`: A's values come from the run's seed plus it, B's from
 the seed plus it plus one.  The program gets its own copies of the pool.
+Faults and controls: those of `entries/spgemm.py`, and `unchanged`.
 """
 
 from __future__ import annotations
 
 from cardbench import operands
-from cardbench.entries.spgemm import answer, csr
+from cardbench.entries.spgemm import (altered, answer, card_control,  # noqa
+                                      control, csr, half_rows)
 from cardbench.reference import spgemm as reference
 from cardbench.work import spgemm as counts
 
@@ -52,8 +54,24 @@ class Timed:
                                 self.b._replace(data=self.b_vals[key]),
                                 operand_round)
 
-    def work(self, nnz_c: int) -> dict:
-        return counts.plan_call(self.a, self.b, nnz_c)
+    def work(self, expected) -> dict:
+        return counts.plan_call(self.a, self.b, expected[1].numel())
 
     def close(self):
         self._plan = self._a_vals = self._b_vals = None
+
+
+def unchanged(timed):
+    """A state that never changes: the first answer, for every later value
+    pair."""
+    first = []
+
+    def call(i):
+        out = timed.call(i)
+        if not first:
+            first.append(out)
+        return first[0]
+    return call
+
+
+faults = {"altered": altered, "half_rows": half_rows, "unchanged": unchanged}

@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import importlib.util
-import json
 import random
 import subprocess
 import sys
@@ -32,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from cardbench import check, operands, tracing
+from cardbench.files import load_file, read_json
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -70,11 +69,6 @@ class Run:
     trace: Optional[tracing.Trace] = None
 
 
-def read_json(path: Path) -> dict:
-    with open(path) as f:
-        return json.load(f)
-
-
 def for_cell(metrics: List[dict], cell: str) -> List[dict]:
     return [m for m in metrics if cell in m.get("workloads", [cell])]
 
@@ -96,14 +90,16 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                 per_layer=for_cell(spec["per_layer"], name))
 
 
-def load_file(path: Path):
-    """A module of the benchmark loaded from its file, so that any name
-    works and a copy of the tree finds its own files."""
-    spec = importlib.util.spec_from_file_location(
-        f"cardbench_{path.parent.name}_{path.stem}".replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def load_entry(cell: Cell, root: Path = ROOT):
+    """`cardbench/entries/<entry>.py` of the cell's traffic: its `Timed`,
+    and for the tests its `faults`, `control` and `card_control`."""
+    return load_file(root / "cardbench" / "entries"
+                     / f"{cell.traffic['entry']}.py")
+
+
+def small(workload: str, root: Path = ROOT) -> dict:
+    """The `config_patch` that runs a cell at its laws' small sizes."""
+    return operands.small(load_cell(workload, root).config, root)
 
 
 def load_reader(name: str, root: Path = ROOT) -> Callable:
@@ -193,18 +189,19 @@ def window(timed, call, seconds, device, traced, seed):
 
 def compare(timed, kept) -> dict:
     """Every kept answer against the reference: the worst of each number,
-    C's nnz by the reference, and how many answers were compared."""
+    the last reference answer (for the work count), and how many answers
+    were compared."""
     refs, worst = {}, {}
-    nnz_c = None
+    ref = None
     for key, got in kept:
         if key not in refs:
-            refs[key] = tuple(x.cpu() for x in timed.expected(key))
-        nnz_c = refs[key][1].numel()
-        for name, value in check.numbers(got, refs[key]).items():
+            refs[key] = check.host(timed.expected(key))
+        ref = refs[key]
+        for name, value in check.numbers_of(got, ref).items():
             old = worst.get(name, 0.0)
             worst[name] = (None if value is None or old is None
                            else max(old, value))
-    return {"numbers": worst, "nnz_c": nnz_c, "compared": len(kept)}
+    return {"numbers": worst, "ref": ref, "compared": len(kept)}
 
 
 def run_cell(workload: str, seed: int, seconds: float, traced: bool,
@@ -222,7 +219,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     t_start = t_torch if t_start is None else t_start
     cell = load_cell(workload, root)
     config = dict(cell.config, **(config_patch or {}))
-    precision = precision or config["precision"]
+    precision = precision or config.get("precision")
     cuda = torch.device(device).type == "cuda"
     if cuda and (not torch.cuda.is_available()
                  or torch.cuda.device_count() < cell.chips):
@@ -231,10 +228,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     marks = [("start", t_start), ("torch", t_torch),
              ("card", time.perf_counter())]
     build = import_port()
-    entry = load_file(root / "cardbench" / "entries"
-                      / f"{cell.traffic['entry']}.py")
+    entry = load_entry(cell, root)
     marks.append(("import", time.perf_counter()))
-    mats = operands.make(config, seed, device)
+    mats = operands.make(config, seed, device, root)
     sync(device)
     marks.append(("operands", time.perf_counter()))
     timed = entry.Timed(mats, cell.traffic, config, precision, seed,
@@ -279,8 +275,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     run = Run(setup_s=setup_s, window_s=window_s, calls_s=times,
               attempted=attempted, failed=failed,
               peak_window_bytes=peak - base, launches=launches)
-    if seen["nnz_c"] is not None:
-        run.work = timed.work(seen["nnz_c"])
+    if seen["ref"] is not None:
+        run.work = timed.work(seen["ref"])
     kind = torch.cuda.get_device_name(0) if cuda else "cpu"
     run.peaks = read_json(HERE / "peaks.json").get(kind)
     if prof is not None:

@@ -9,7 +9,9 @@ result stands for the exact product of the float32 operands.
 
 `operand_round="tf32"` rounds both operands to TF32 (10 mantissa bits,
 nearest, ties away from zero) before the product: the float32 product as
-a TF32 GEMM computes it, the lower-precision control of a float32 cell.
+a TF32 GEMM computes it, the lower-precision control of a float32 cell;
+`"float32"` rounds them to float32, the control of a float64 cell
+(`reference/rounding.py`).
 """
 
 from __future__ import annotations
@@ -18,11 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value, as float32."""
-    x = x.to(torch.float32).contiguous()
-    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+from cardbench.reference.rounding import rounded
 
 
 def dense_rows(indptr, indices, data, r0: int, r1: int, cols: int,
@@ -45,10 +43,7 @@ def spgemm(a, b, operand_round: Optional[str] = None,
     """(indptr int64, indices int64, data float64) of A @ B; `a` and `b`
     are (indptr, indices, data, shape), on any one device."""
     (a_ip, a_ix, a_v, (m, k)), (b_ip, b_ix, b_v, (_, n)) = a, b
-    if operand_round == "tf32":
-        a_v, b_v = round_tf32(a_v), round_tf32(b_v)
-    elif operand_round is not None:
-        raise ValueError(f"unknown operand_round {operand_round!r}")
+    a_v, b_v = rounded(a_v, operand_round), rounded(b_v, operand_round)
     f64 = torch.float64
     bd = dense_rows(b_ip, b_ix, b_v, 0, k, n, f64)
     bp = dense_rows(b_ip, b_ix, torch.ones_like(b_v), 0, k, n, f64)

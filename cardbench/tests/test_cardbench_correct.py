@@ -1,21 +1,23 @@
 """The check must fail the control and every fault a cell can have.
 
-Each test drives a whole run of a cell at a small size on the CPU (the
-harness's look for a card skipped), with the timed call replaced:
+Each test drives a whole run of a cell at its laws' small sizes on the CPU
+(the harness's look for a card skipped), with the timed call replaced by
+one that the cell's entry states (`entries/<entry>.py`):
 
-* the control: the plain reference computed from TF32-rounded operands, the
-  precision just below the configuration's IEEE float32, in the program's
-  place;
-* an answer altered where it is produced: one value of C changed;
-* half of the work left out: the rows of C's second half dropped;
-* a step that returns its state unchanged: the plan's first answer
-  returned for every later value pair (only the plan cell has a state that
-  changes between calls; the other cells multiply the same operands every
-  call).
+* `control`: the plain reference computed from operands rounded one
+  precision below the configuration's dtype (TF32 for float32, float32
+  for float64), in the program's place;
+* each of the entry's `faults`: for SpGEMM an answer altered where it is
+  produced (`altered`), the rows of C's second half left out
+  (`half_rows`), and for the plan a step that returns its state unchanged
+  (`unchanged`: the first answer for every later value pair; the other
+  SpGEMM cells multiply the same operands every call).
 
+Each must be caught by a number of the check, not by a call that raised.
 The exchange between chips does not exist in these one-chip cells.  The
-card test runs the port's own TF32 path (`precision="default"`), the
-control on the card, at a size a test run holds.
+card test runs the port's own lower-precision path (the entry's
+`card_control`: SpGEMM's TF32 `precision="default"`), the control on the
+card, and skips a cell whose entry has none.
 """
 
 import sys
@@ -27,66 +29,33 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from cardbench import harness  # noqa: E402
+from cardbench import check, harness  # noqa: E402
 
 CELLS = [w["name"] for w in harness.read_json(ROOT / "BENCHMARK.json")
          ["workloads"]]
 SEED = 2**31 + 77
 
 
-def patch(n):
-    return {"matrices": {
-        "A": {"rows": n, "cols": n, "density": 0.1, "seed_offset": 0},
-        "B": {"rows": n, "cols": n, "density": 0.1, "seed_offset": 1}}}
+def entry(cell):
+    return harness.load_entry(harness.load_cell(cell, ROOT), ROOT)
 
 
-def run(cell, wrap=None, device="cpu", n=64, precision=None):
+# (cell, what) for the control and every fault of each cell's entry
+FAULTS = [(cell, what) for cell in CELLS
+          for what in ["control", *entry(cell).faults]]
+
+
+def run(cell, wrap=None, device="cpu", **kw):
     result, lines = harness.run_cell(cell, SEED, 0.5, False, device=device,
-                                     config_patch=patch(n), wrap=wrap,
-                                     precision=precision)
+                                     config_patch=harness.small(cell, ROOT),
+                                     wrap=wrap, **kw)
     return result
 
 
-def csr(ip, ix, v, cols):
-    from spmm_tpu_torch.sparse.csr import CSR
-
-    return CSR._wrap(ip.to(torch.int32), ix.to(torch.int32),
-                     v.to(torch.float32), (ip.numel() - 1, cols),
-                     canonical=True)
-
-
-def control(timed):
-    return lambda i: csr(*timed.expected(timed.key(i), "tf32"),
-                         timed.b.shape[1])
-
-
-def altered(timed):
-    def call(i):
-        out = timed.call(i)
-        out.data[out.data.numel() // 2] += 0.01
-        return out
-    return call
-
-
-def half_rows(timed):
-    def call(i):
-        out = timed.call(i)
-        m = out.indptr.numel() - 1
-        keep = int(out.indptr[m // 2])
-        ip = torch.clamp(out.indptr, max=keep)
-        return csr(ip, out.indices[:keep], out.data[:keep], out.shape[1])
-    return call
-
-
-def unchanged(timed):
-    first = []
-
-    def call(i):
-        out = timed.call(i)
-        if not first:
-            first.append(out)
-        return first[0]
-    return call
+def caught_by_a_number(r):
+    """Not correct, with every call made and some number over its limit."""
+    return (not r["correct"] and r["failed"] == 0
+            and bool(check.numbers_over(r["checks"])))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -96,16 +65,11 @@ def test_sound_run_is_correct(cell):
     assert r["checks"]["value_err"]["value"] < 1e-6
 
 
-@pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", [control, altered, half_rows])
-def test_fault_is_not_correct(cell, fault):
-    r = run(cell, wrap=fault)
-    assert not r["correct"], r["checks"]
-
-
-def test_plan_state_unchanged_is_not_correct():
-    r = run("n1024-d0.1.plan", wrap=unchanged)
-    assert not r["correct"], r["checks"]
+@pytest.mark.parametrize("cell,what", FAULTS)
+def test_fault_is_not_correct(cell, what):
+    e = entry(cell)
+    r = run(cell, wrap=e.control if what == "control" else e.faults[what])
+    assert caught_by_a_number(r), r["checks"]
 
 
 @pytest.fixture
@@ -118,6 +82,10 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell", CELLS)
 def test_port_tf32_path_is_not_correct_on_the_card(card, cell):
-    assert run(cell, device=card, n=256)["correct"]
-    r = run(cell, device=card, n=256, precision="default")
-    assert not r["correct"], r["checks"]
+    low = entry(cell).card_control
+    if low is None:
+        pytest.skip(f"{cell}: its entry has no lower-precision path of the "
+                    "port's own (card_control is None)")
+    assert run(cell, device=card)["correct"]
+    r = run(cell, device=card, **low)
+    assert caught_by_a_number(r), r["checks"]

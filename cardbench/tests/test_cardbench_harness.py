@@ -1,5 +1,6 @@
-"""CPU tests of the benchmark's pieces: work counts, the reference, the
-names in BENCHMARK.json, discovery by name, readers and the trace reading.
+"""CPU tests of the benchmark's pieces: SpGEMM's work counts and
+reference, the names in BENCHMARK.json, discovery by name, readers and the
+trace reading.
 
     python -m pytest cardbench/tests -q -p no:cacheprovider
 """
@@ -18,16 +19,17 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from cardbench import harness, operands, tracing  # noqa: E402
+from cardbench import check, harness, tracing  # noqa: E402
+from cardbench.files import load_file  # noqa: E402
 from cardbench.reference import spgemm as reference  # noqa: E402
+from cardbench.reference.rounding import round_tf32  # noqa: E402
 from cardbench.work import spgemm as counts  # noqa: E402
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-TINY = {"matrices": {
-    "A": {"rows": 48, "cols": 40, "density": 0.1, "seed_offset": 0},
-    "B": {"rows": 40, "cols": 56, "density": 0.1, "seed_offset": 1}}}
+uniform_csr = load_file(ROOT / "cardbench" / "laws" / "uniform.py"
+                        ).uniform_csr
 
 
 def dense(m):
@@ -40,13 +42,13 @@ def dense(m):
 
 
 def small_pair(seed=7):
-    a = operands.uniform_csr(48, 40, 0.1, seed, device="cpu")
-    b = operands.uniform_csr(40, 56, 0.2, seed + 1, device="cpu")
+    a = uniform_csr(48, 40, 0.1, seed, device="cpu")
+    b = uniform_csr(40, 56, 0.2, seed + 1, device="cpu")
     return a, b
 
 
 def test_operands_have_exact_count_and_canonical_rows():
-    m = operands.uniform_csr(30, 50, 0.1, 2**31 + 3, device="cpu")
+    m = uniform_csr(30, 50, 0.1, 2**31 + 3, device="cpu")
     assert m.indices.numel() == m.data.numel() == int(0.1 * 30 * 50)
     ip = m.indptr.tolist()
     assert ip[0] == 0 and ip[-1] == m.indices.numel()
@@ -54,7 +56,7 @@ def test_operands_have_exact_count_and_canonical_rows():
         row = m.indices[ip[r]:ip[r + 1]].tolist()
         assert row == sorted(set(row))
     assert 0 <= float(m.data.min()) and float(m.data.max()) < 1
-    again = operands.uniform_csr(30, 50, 0.1, 2**31 + 3, device="cpu")
+    again = uniform_csr(30, 50, 0.1, 2**31 + 3, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(m[:3], again[:3]))
 
 
@@ -91,7 +93,7 @@ def test_reference_against_dense_numpy():
 
 def test_reference_tf32_rounds_the_operands():
     x = torch.rand(1000, dtype=torch.float32)
-    t = reference.round_tf32(x)
+    t = round_tf32(x)
     assert int((t.view(torch.int32) & 0x1FFF).abs().sum()) == 0
     assert float(((t - x).abs() / x).max()) <= 2.0**-11
     a, b = small_pair()
@@ -155,7 +157,7 @@ def test_every_name_is_found_as_a_file():
         cell = harness.load_cell(w["name"])
         assert (ROOT / "cardbench" / "entries"
                 / f"{cell.traffic['entry']}.py").is_file()
-        assert set(cell.limits) == {"structure_mismatch", "value_err"}
+        assert set(cell.limits) in [set(k) for k in check.KINDS.values()]
     for m in SPEC["end_to_end"] + SPEC["per_layer"]:
         assert callable(harness.load_reader(m["name"]))
 
@@ -195,8 +197,9 @@ def test_a_cell_mix_config_and_metric_added_as_new_files(tmp_path):
                               "moves": "call_ms",
                               "workloads": ["tiny-new.alg2"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    result, _ = harness.run_cell("tiny-new.alg2", 5, 0.2, True, device="cpu",
-                                 root=tmp_path, config_patch=TINY)
+    result, _ = harness.run_cell(
+        "tiny-new.alg2", 5, 0.2, True, device="cpu", root=tmp_path,
+        config_patch=harness.small("tiny-new.alg2", tmp_path))
     assert result["correct"], result
     assert result["metrics"]["calls_seen"]["value"] >= 1
     after = digest(tmp_path / "cardbench")

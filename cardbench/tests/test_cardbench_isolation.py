@@ -1,9 +1,10 @@
 """What a run loads and reads, and where it refuses to run.
 
-Each cell's set-up and calls run at a small size on the CPU in a fresh
-process that records every file it opens: afterwards no module of JAX or
-of the JAX package `spmm_tpu` is loaded (top-level names compared whole:
-`spmm_tpu_torch` is the port) and no file under `benchmarks/` was opened.
+Each cell's set-up and calls run at its laws' small sizes on the CPU in a
+fresh process that records every file it opens: afterwards no module of
+JAX or of the JAX package `spmm_tpu` is loaded (top-level names compared
+whole: `spmm_tpu_torch` is the port) and no file under `benchmarks/` was
+opened.
 """
 
 import json
@@ -16,6 +17,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())
+         ["workloads"]]
 CHILD = r"""
 import json, os, sys
 from pathlib import Path
@@ -30,14 +33,12 @@ sys.addaudithook(hook)
 sys.path.insert(0, str(root))
 from cardbench import harness
 
-tiny = {"matrices": {
-    "A": {"rows": 32, "cols": 32, "density": 0.1, "seed_offset": 0},
-    "B": {"rows": 32, "cols": 32, "density": 0.1, "seed_offset": 1}}}
 spec = harness.read_json(root / "BENCHMARK.json")
 calls = {}
 for w in spec["workloads"]:
     result, _ = harness.run_cell(w["name"], 2**31 + 9, 0.05, False,
-                                 device="cpu", config_patch=tiny)
+                                 device="cpu",
+                                 config_patch=harness.small(w["name"], root))
     calls[w["name"]] = result["attempted"]
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "spmm_tpu"))
@@ -73,7 +74,7 @@ def test_no_card_no_result():
     if torch.cuda.is_available():
         pytest.skip("a card is here")
     out = subprocess.run(
-        [sys.executable, "cardbench/run.py", "--workload", "n1024-d0.1.alg1",
+        [sys.executable, "cardbench/run.py", "--workload", CELLS[0],
          "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=ROOT,
         capture_output=True, text=True, timeout=300, env=env())
     assert out.returncode != 0
