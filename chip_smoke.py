@@ -127,6 +127,11 @@ for each:
      tests' tolerances, with both kernels seen in a profiler trace of the
      wide alg1 call and their device times at each width; SpMV and SpMM in
      float64 at 16384^2/5e-3 against scipy; times beside float32's;
+     HPCG's float64 SpMV at its 104^3 grid (the benchmark's stencil27
+     law): `spmv_plan(A)` the float64 routed plan, `spmv(A, x, plan=P)`
+     one `spmv_routed` launch, bitwise on rerun, within 1e-13 of
+     `spmv_routed_plain` and of the benchmark's float64 reference, with
+     the kernel's device time and the least time of its work;
  16. the precision modes "highest", "high" (3xTF32) and "default" (one
      TF32 pass) at 1024^2/0.1 and 8192^2/1e-3, for alg1 and a serving
      plan: time a call, device busy, the value GEMM's share, and the error
@@ -187,7 +192,8 @@ card could take for the same work and what bounds it, and the time of one
 PyTorch library call computing the same function, where there is one) for
 the eleven TPU kernels' counterparts and the port's own `spmv_binned_plan`
 and `segment_sum` (phase 22's launches added to those of the kernels it
-runs), and
+runs; `spmv_routed`'s row also holds its float64 instance at HPCG's grid,
+from phase 15), and
 as the last line `{"ok": true, "device": {...}}`.  Any failure raises and
 exits non-zero;
 so does a machine without CUDA.  It imports neither jax nor spmm_tpu.
@@ -245,6 +251,11 @@ WARMUP = 3
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12
+FP64_FLOPS = 34e12  # float64 outside the tensor cores
+# HPCG's local grid (hpcg-benchmark/hpcg, bin/hpcg.dat) and the limit of
+# the benchmark's HPCG cells on max |dy| / max |y|
+HPCG_GRID = (104, 104, 104)
+HPCG_REL = 1e-13
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -2469,7 +2480,72 @@ def phase15(dev, smi):
     print(f"phase 15 [{smi}]: within 1e-12 (float64) and 1e-6 (float32) of "
           "each row's |A||x| of scipy, bitwise on rerun: " + json.dumps(mv),
           flush=True)
+    del a_mv, x, X, s64, a, xv, Xv, y, Y
+    torch.cuda.empty_cache()
+    rows.append(hpcg_f64(dev, smi))
     return rows
+
+
+def hpcg_f64(dev, smi) -> dict:
+    """HPCG's float64 SpMV on the serving path at the reference's 104^3
+    grid: the stencil of `cardbench/laws/stencil27.py` on the card,
+    `spmv_plan(A)` the float64 routed plan with every row in slices; one
+    `spmv(A, x, plan=P)` is one `spmv_routed` launch and nothing else, its
+    y bitwise `spmv_routed`'s, on rerun too, and within HPCG_REL of
+    `spmv_routed_plain` and of the benchmark's float64 reference (max
+    |dy| / max |y|); the kernel's device time, its plain version's, and
+    the least time of the work (A's three arrays, x and y once each)."""
+    from cardbench.laws import stencil27
+    from cardbench.reference import spmv as ref_spmv
+
+    law = stencil27.make({"grid": list(HPCG_GRID)}, 0, torch.float64, dev)
+    a = pt.CSR.from_parts(*law, canonical=True)
+    (m, n), nnz = a.shape, a.nnz
+    tag, p = pt.spmv_plan(a)
+    if tag != "routed" or p.sell_val.dtype != torch.float64 \
+            or p.partial.dtype != torch.float64 or p.long_rows.numel():
+        raise AssertionError(f"hpcg: spmv_plan gave {tag} "
+                             f"{p.sell_val.dtype}, {p.long_rows.numel()} "
+                             "long rows")
+    g = torch.Generator(device=dev).manual_seed(2026)
+    x = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    pt.spmv(a, x, plan=(tag, p))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    y = pt.spmv(a, x, plan=(tag, p))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched != {"spmv_routed": 1}:
+        raise AssertionError(f"hpcg: spmv(A, x, plan) launched {launched}")
+    got, again = kr.spmv_routed(x, p), kr.spmv_routed(x, p)
+    if y.dtype != torch.float64 or not (same_bits(y, got)
+                                        and same_bits(got, again)):
+        raise AssertionError("hpcg: spmv_routed float64 not bitwise the "
+                             "entry's y, or not on rerun")
+    plain = kr.spmv_routed_plain(x, p)
+    ref = ref_spmv.spmv(tuple(law), x)
+    err = {name: float((y - w).abs().max() / w.abs().max())
+           for name, w in (("plain", plain), ("reference", ref))}
+    if not all(e <= HPCG_REL for e in err.values()):
+        raise AssertionError(f"hpcg: float64 routed off by {err}")
+    del plain, ref, got, again
+    # float64 values and int32 indices, indptr, x and y once; 2 flops an
+    # entry at the float64 rate
+    least = bound(8 * nnz + 4 * nnz + 4 * (m + 1) + 8 * (n + m), 2 * nnz,
+                  FP64_FLOPS)
+    grid = "x".join(map(str, HPCG_GRID))
+    row = {"cell": f"stencil27 {grid} float64", "m": m, "nnz": nnz,
+           "launches": launched["spmv_routed"],
+           "max_rel_err_plain": err["plain"],
+           "max_rel_err_reference": err["reference"],
+           "ms": kernel_ms(lambda: kr.spmv_routed(x, p), "routed_spmv"),
+           "event_ms": median_ms(lambda: pt.spmv(a, x, plan=(tag, p))),
+           "plain_ms": median_ms(lambda: kr.spmv_routed_plain(x, p)),
+           "bound_ms": least[0], "bound_by": least[1]}
+    print(f"phase 15 [{smi}]: HPCG's SpMV at {grid} in float64, the entry "
+          f"one spmv_routed launch, within {HPCG_REL} of plain and the "
+          "reference, bitwise on rerun: " + json.dumps(row), flush=True)
+    return row
 
 
 def phase16(smi):
@@ -3378,7 +3454,7 @@ def main():
     t_mxu = next(r for r in rows13 if r["cell"] == MXU_CELLS[-1][0])
     torch.cuda.empty_cache()
     phase14(dev, smi)
-    phase15(dev, smi)
+    t_hpcg = phase15(dev, smi)[-1]  # HPCG's float64 SpMV at 104^3
     phase16(smi)
     torch.cuda.empty_cache()
     phase17(smi)
@@ -3436,10 +3512,12 @@ def main():
                launches5["spmv_binned"], err4["spmv_binned"],
                t_mv["spmv_binned_ms"], t_mv["spmv_binned_plain_ms"],
                spmv_bound, t_mv["torch_csr_mv_ms"]),
-        kernel("spmv_routed", "spmv_routed.cu", "spmv_routed.py:865",
-               launches5["spmv_routed"], err4["spmv_routed"],
-               t_mv["spmv_routed_ms"], t_mv["spmv_routed_plain_ms"],
-               spmv_bound, t_mv["torch_csr_mv_ms"]),
+        # and its float64 instance on HPCG's stencil, the serving path of
+        # the benchmark's hpcg-ref-104.plan cell
+        dict(kernel("spmv_routed", "spmv_routed.cu", "spmv_routed.py:865",
+                    launches5["spmv_routed"], err4["spmv_routed"],
+                    t_mv["spmv_routed_ms"], t_mv["spmv_routed_plain_ms"],
+                    spmv_bound, t_mv["torch_csr_mv_ms"]), float64=t_hpcg),
         kernel("spmm_routed", "spmm_routed.cu", "spmv_routed.py:1054",
                launches5["spmm_routed"] + l22("spmm_routed", 0),
                err4["spmm_routed"],

@@ -7,18 +7,23 @@
 // is closed by `join_piece`: an integer counter picks the block that adds
 // the pieces, and the pieces are added in piece order whichever block that
 // is.  So reruns are bitwise equal, and no float atomics are used.
+// `group_tree_sum`, `warp_ordered_sum` and `join_piece` take the value
+// type of their operands (float, or double for the float64 routed SpMV);
+// at float they are the float code they were.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace spmm {
 
 // Sum of `v` over each aligned group of W lanes (W a power of two, W <= 32)
 // by a fixed tree; lane 0 of the group holds the result.  Every lane of the
 // warp must call it.
-template <int W>
-__device__ __forceinline__ float group_tree_sum(float v) {
+template <int W, typename T>
+__device__ __forceinline__ T group_tree_sum(T v) {
 #pragma unroll
   for (int o = W / 2; o > 0; o >>= 1) {
     v += __shfl_down_sync(0xffffffffu, v, o, W);
@@ -65,30 +70,31 @@ __device__ __forceinline__ float block_tree_sum(float v, float* smem) {
 // 32)), then the runs are added in lane order.  A lane reads its run 8
 // pieces at a time, all 8 loads in flight before their adds (a row of 2048
 // pieces is 64 a lane: 8 waits on L2, not 64).  Every lane of the warp
-// must call it; every lane returns the sum.
+// must call it; every lane returns the sum, in the type `piece` returns.
 template <typename Piece>
-__device__ __forceinline__ float warp_ordered_sum(Piece piece, int n) {
+__device__ __forceinline__ auto warp_ordered_sum(Piece piece, int n) {
+  using T = std::decay_t<decltype(piece(0))>;
   constexpr int kBatch = 8;
   const int lane = threadIdx.x & 31;
   const int g = (n + 31) / 32;
   const int b = lane * g;
   const int e = min(b + g, n);
-  float run = 0.0f;
+  T run = T(0);
   if (b < e) {
     run = piece(b);
     for (int i = b + 1; i < e; i += kBatch) {
-      float v[kBatch];
+      T v[kBatch];
 #pragma unroll
-      for (int q = 0; q < kBatch; ++q) v[q] = i + q < e ? piece(i + q) : 0.0f;
+      for (int q = 0; q < kBatch; ++q) v[q] = i + q < e ? piece(i + q) : T(0);
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         if (i + q < e) run += v[q];
       }
     }
   }
-  float sum = __shfl_sync(0xffffffffu, run, 0);
+  T sum = __shfl_sync(0xffffffffu, run, 0);
   for (int l = 1; l < 32; ++l) {
-    const float r = __shfl_sync(0xffffffffu, run, l);
+    const T r = __shfl_sync(0xffffffffu, run, l);
     if (l * g < n) sum += r;
   }
   return sum;
@@ -100,10 +106,10 @@ __device__ __forceinline__ float warp_ordered_sum(Piece piece, int n) {
 // pieces in order (`pieces(i)`, read from L2, since other blocks stored
 // them), writes the sum to *out, and resets the counter to 0 for the next
 // launch.  The atomic decides only who sums, never the order of the sum.
-template <typename Pieces>
-__device__ __forceinline__ void join_piece(float piece, float* slot,
-                                           int* counter, int parts,
-                                           Pieces pieces, float* out) {
+template <typename T, typename Pieces>
+__device__ __forceinline__ void join_piece(T piece, T* slot, int* counter,
+                                           int parts, Pieces pieces,
+                                           T* out) {
   int last = 0;
   if ((threadIdx.x & 31) == 0) {
     *slot = piece;
@@ -113,7 +119,7 @@ __device__ __forceinline__ void join_piece(float piece, float* slot,
   last = __shfl_sync(0xffffffffu, last, 0);
   if (!last) return;
   __threadfence();
-  const float sum = warp_ordered_sum(pieces, parts);
+  const T sum = warp_ordered_sum(pieces, parts);
   if ((threadIdx.x & 31) == 0) {
     *out = sum;
     *counter = 0;

@@ -46,6 +46,12 @@
 // float atomics, bitwise on rerun.  A plan's counters and partials serve
 // one launch at a time: a plan is not shared by launches on two streams at
 // once.
+//
+// The value type T is float or double (`spmm_spmv_routed`,
+// `spmm_spmv_routed_f64`): one layout, one order of every sum, fma in T
+// (fmaf at float).  A float64 slot is 12 bytes, not 8, and a lane's K
+// slots in flight twice the bytes; the float instantiation is the float
+// kernel it was.
 
 #include <cuda_runtime.h>
 
@@ -57,29 +63,38 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kK = 8;  // slots (or entries) a lane keeps in flight
 
+__device__ __forceinline__ float fma_in(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double fma_in(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // Lane `lane`'s part of a slice row: the slots of columns [j0, j1) at
 // base + 32*j, K at a time, loads before FMAs, added in column order.
-__device__ __forceinline__ float slice_part(const int* __restrict__ col,
-                                            const float* __restrict__ val,
-                                            const float* __restrict__ x,
-                                            long long base, int j0, int j1) {
-  float acc = 0.0f;
+template <typename T>
+__device__ __forceinline__ T slice_part(const int* __restrict__ col,
+                                        const T* __restrict__ val,
+                                        const T* __restrict__ x,
+                                        long long base, int j0, int j1) {
+  T acc = T(0);
   for (int j = j0; j < j1; j += kK) {
     int c[kK];
-    float v[kK];
+    T v[kK];
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
       const bool in = j + q < j1;
       const long long p = base + 32LL * (j + q);
       c[q] = in ? __ldg(col + p) : 0;
-      v[q] = in ? __ldg(val + p) : 0.0f;
+      v[q] = in ? __ldg(val + p) : T(0);
     }
-    float g[kK];
+    T g[kK];
 #pragma unroll
     for (int q = 0; q < kK; ++q) g[q] = __ldg(x + c[q]);
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
-      if (j + q < j1) acc = fmaf(v[q], g[q], acc);
+      if (j + q < j1) acc = fma_in(v[q], g[q], acc);
     }
   }
   return acc;
@@ -88,28 +103,28 @@ __device__ __forceinline__ float slice_part(const int* __restrict__ col,
 // Sum of data[e] * x[indices[e]] over the chunk [s, e1) by one warp: lane l
 // adds entries s + l, s + l + 32, ... in order (K in flight), then a fixed
 // shuffle tree; lane 0 returns the sum.
-__device__ __forceinline__ float chunk_dot(const int* __restrict__ indices,
-                                           const float* __restrict__ data,
-                                           const float* __restrict__ x,
-                                           long long s, long long e1,
-                                           int lane) {
-  float acc = 0.0f;
+template <typename T>
+__device__ __forceinline__ T chunk_dot(const int* __restrict__ indices,
+                                       const T* __restrict__ data,
+                                       const T* __restrict__ x, long long s,
+                                       long long e1, int lane) {
+  T acc = T(0);
   for (long long b = s + lane; b < e1; b += 32LL * kK) {
     int c[kK];
-    float v[kK];
+    T v[kK];
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
       const long long e = b + 32LL * q;
       const bool in = e < e1;
       c[q] = in ? __ldcs(indices + e) : 0;
-      v[q] = in ? __ldcs(data + e) : 0.0f;
+      v[q] = in ? __ldcs(data + e) : T(0);
     }
-    float g[kK];
+    T g[kK];
 #pragma unroll
     for (int q = 0; q < kK; ++q) g[q] = __ldg(x + c[q]);
 #pragma unroll
     for (int q = 0; q < kK; ++q) {
-      if (b + 32LL * q < e1) acc = fmaf(v[q], g[q], acc);
+      if (b + 32LL * q < e1) acc = fma_in(v[q], g[q], acc);
     }
   }
   return spmm::group_tree_sum<32>(acc);
@@ -121,21 +136,21 @@ struct Classes {
   int n[4];
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     routed_spmv(const long long* __restrict__ slice_ptr,
                 const int* __restrict__ slice_rows,
                 const int* __restrict__ sell_col,
-                const float* __restrict__ sell_val, Classes cls,
-                const int* __restrict__ indices,
-                const float* __restrict__ data,
+                const T* __restrict__ sell_val, Classes cls,
+                const int* __restrict__ indices, const T* __restrict__ data,
                 const int* __restrict__ chunk_start,
                 const int* __restrict__ chunk_end,
                 const int* __restrict__ chunk_row, int nchunks,
                 const int* __restrict__ long_rows,
                 const int* __restrict__ long_chunk_ptr,
-                const float* __restrict__ x, int* __restrict__ counters,
-                float* __restrict__ partial, float* __restrict__ y) {
-  __shared__ float s_part[kWarps][32];
+                const T* __restrict__ x, int* __restrict__ counters,
+                T* __restrict__ partial, T* __restrict__ y) {
+  __shared__ T s_part[kWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int b = blockIdx.x;
@@ -148,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
       const int s = first + b * per + warp / parts;
       const int part = warp % parts;
       const bool live = s < first + cls.n[i];
-      float acc = 0.0f;
+      T acc = T(0);
       long long base = 0;
       if (live) {
         base = slice_ptr[s];
@@ -177,13 +192,34 @@ __global__ void __launch_bounds__(kThreads)
   // a chunk block: a warp per chunk of a long row
   const int c = b * kWarps + warp;
   if (c >= nchunks) return;  // whole warps leave together
-  const float piece =
+  const T piece =
       chunk_dot(indices, data, x, chunk_start[c], chunk_end[c], lane);
   const int i = chunk_row[c];
   const int c0 = long_chunk_ptr[i];
   spmm::join_piece(
       piece, partial + c, counters + i, long_chunk_ptr[i + 1] - c0,
       [&](int k) { return __ldcg(partial + c0 + k); }, y + long_rows[i]);
+}
+
+// `spmm_spmv_routed` in value type T.
+template <typename T>
+int launch(const long long* slice_ptr, const int* slice_rows,
+           const int* sell_col, const T* sell_val, const Classes& cls,
+           const int* indices, const T* data, const int* chunk_start,
+           const int* chunk_end, const int* chunk_row, int nchunks,
+           const int* long_rows, const int* long_chunk_ptr, const T* x,
+           int* counters, T* partial, T* y, void* stream) {
+  long long blocks = (nchunks + kWarps - 1) / kWarps;
+  for (int i = 0; i < 4; ++i) blocks += (cls.n[i] + (1 << i) - 1) >> i;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  routed_spmv<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      slice_ptr, slice_rows, sell_col, sell_val, cls, indices, data,
+      chunk_start, chunk_end, chunk_row, nchunks, long_rows, long_chunk_ptr,
+      x, counters, partial, y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -203,16 +239,22 @@ extern "C" int spmm_spmv_routed(const long long* slice_ptr,
                                 const int* long_chunk_ptr, const float* x,
                                 int* counters, float* partial, float* y,
                                 void* stream) {
-  const Classes cls{{n8, n4, n2, n1}};
-  long long blocks = (nchunks + kWarps - 1) / kWarps;
-  for (int i = 0; i < 4; ++i) blocks += (cls.n[i] + (1 << i) - 1) >> i;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  routed_spmv<<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      slice_ptr, slice_rows, sell_col, sell_val, cls, indices, data,
-      chunk_start, chunk_end, chunk_row, nchunks, long_rows, long_chunk_ptr,
-      x, counters, partial, y);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(slice_ptr, slice_rows, sell_col, sell_val,
+                       Classes{{n8, n4, n2, n1}}, indices, data, chunk_start,
+                       chunk_end, chunk_row, nchunks, long_rows,
+                       long_chunk_ptr, x, counters, partial, y, stream);
+}
+
+// The same over a float64 plan: sell_val, data, x, partial and y double.
+extern "C" int spmm_spmv_routed_f64(
+    const long long* slice_ptr, const int* slice_rows, const int* sell_col,
+    const double* sell_val, int n8, int n4, int n2, int n1,
+    const int* indices, const double* data, const int* chunk_start,
+    const int* chunk_end, const int* chunk_row, int nchunks,
+    const int* long_rows, const int* long_chunk_ptr, const double* x,
+    int* counters, double* partial, double* y, void* stream) {
+  return launch<double>(slice_ptr, slice_rows, sell_col, sell_val,
+                        Classes{{n8, n4, n2, n1}}, indices, data,
+                        chunk_start, chunk_end, chunk_row, nchunks, long_rows,
+                        long_chunk_ptr, x, counters, partial, y, stream);
 }

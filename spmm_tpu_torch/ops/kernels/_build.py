@@ -90,6 +90,8 @@ _SIGNATURES = {
     # indptr, indices, data, out, m, k, stream
     "spmm_densify_mxu": (_P, _P, _P, _P, _I, _I, _P),
 }
+# the routed SpMV over a float64 plan takes the float32 entry's arguments
+_SIGNATURES["spmm_spmv_routed_f64"] = _SIGNATURES["spmm_spmv_routed"]
 
 
 def reset_launches() -> None:

@@ -15,9 +15,11 @@ from spmm_tpu_torch.ops import _primitives as prim
 
 def csr_for_plan(indptr, indices, data, device):
     """A plan's CSR (indptr, indices, data) as tensors: tensors stay where
-    they lie (moved to `device` where it is given); host arrays, as JAX's
-    plan functions take them, go to the card unless `device="cpu"` is given,
-    and raise where there is no card (no quiet fallback to the CPU)."""
+    they lie, in their dtypes (moved to `device` where it is given); host
+    arrays, as JAX's plan functions take them, become int32 / int32 /
+    float32 (float64 values too, as JAX's do) and go to the card unless
+    `device="cpu"` is given, and raise where there is no card (no quiet
+    fallback to the CPU)."""
     from spmm_tpu_torch.sparse.base import checked_device
 
     arrays = (indptr, indices, data)
@@ -34,16 +36,16 @@ def csr_for_plan(indptr, indices, data, device):
 
 
 def check_csr(indptr, indices, data, m: int, what: str,
-              widths=None) -> None:
+              dtypes=(torch.float32,)) -> None:
     """A CSR's arrays: contiguous 1-D int32 / int32 / float32 on one CPU or
     CUDA device, indptr of length m + 1.  `data` None checks the structure
-    alone (against the device of `indices`); with `widths`, data may be of
-    any dtype whose element size is one of them."""
+    alone (against the device of `indices`); data may be of any dtype in
+    `dtypes` (the routed plan's: float32 and float64)."""
     arrays = [("indptr", indptr, prim.INDEX_DTYPE),
               ("indices", indices, prim.INDEX_DTYPE)]
     if data is not None:
-        arrays.append(("data", data, torch.float32 if widths is None
-                       or data.element_size() not in widths else data.dtype))
+        arrays.append(("data", data, data.dtype if data.dtype in dtypes
+                       else dtypes[0]))
     ref, ref_name = arrays[-1][1], arrays[-1][0]
     for name, t, dtype in arrays:
         if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
@@ -63,12 +65,14 @@ def check_csr(indptr, indices, data, m: int, what: str,
 
 
 def check_dense(x, ndim: int, n: int, device: torch.device,
-                what: str) -> None:
-    """x must be a contiguous float32 tensor of `ndim` dimensions (a vector,
-    or a row-major matrix) with n rows, on the plan's device."""
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
+                what: str, dtype=torch.float32) -> None:
+    """x must be a contiguous tensor of `dtype` (the plan's: float32, or
+    float64 for a float64 routed plan) of `ndim` dimensions (a vector, or a
+    row-major matrix) with n rows, on the plan's device."""
+    if not isinstance(x, torch.Tensor) or x.dtype != dtype \
             or x.dim() != ndim or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be a contiguous {ndim}-D float32 "
+        name = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{what}: x must be a contiguous {ndim}-D {name} "
                          f"tensor")
     if x.shape[0] != n:
         raise ValueError(f"{what}: x has {x.shape[0]} rows, the plan {n} "

@@ -97,7 +97,8 @@ def densify_onehot(indptr: torch.Tensor, indices: torch.Tensor,
             and indptr.get_device() == indices.get_device() == dev
             and indptr.is_contiguous() and indices.is_contiguous()
             and data.is_contiguous()):
-        check_csr(indptr, indices, data, m, "densify_onehot", WIDTHS)
+        check_csr(indptr, indices, data, m, "densify_onehot",
+                  (data.dtype,) if width in WIDTHS else (torch.float32,))
         raise ValueError("densify_onehot: bad arguments")
     if not data.is_cuda:
         if data.device.type != "cpu":

@@ -40,7 +40,12 @@ serves `spmm_routed` (a per-call `spmm`), not `spmv_routed`.
 Not copied from the TPU plan: its limit `n <= C*16384/R` (the x table's
 reach), its rejection of pathological class skew, and its None for an
 empty matrix (the public `spmv_plan` keeps that None).  This plan takes any
-canonical f32 CSR.
+canonical float32 or float64 CSR tensor, and keeps its values, `sell_val`
+and `partial` in that dtype: `spmv_routed` then runs in it
+(`spmm_spmv_routed` or `spmm_spmv_routed_f64`, one layout and one order of
+every sum), where the JAX package plans float32 alone.  Host arrays become
+float32, as JAX's plan function takes them.  `spmm_routed` takes float32
+plans only.
 """
 
 from __future__ import annotations
@@ -62,6 +67,10 @@ COLS = 16        # slice columns a warp of the SpMV kernel takes, at most
 WARPS = 8        # warps a slice is split across, at most (the block)
 
 INDEX_DTYPE = prim.INDEX_DTYPE
+DTYPES = (torch.float32, torch.float64)  # a plan's values: its dtype
+# the SpMV kernel's C entry for each dtype
+_SPMV_ENTRY = {torch.float32: "spmm_spmv_routed",
+               torch.float64: "spmm_spmv_routed_f64"}
 
 
 class SpmvRoutedPlan(NamedTuple):
@@ -71,7 +80,7 @@ class SpmvRoutedPlan(NamedTuple):
     ch: int
     indptr: torch.Tensor          # (m+1,) i32 — the plan's CSR
     indices: torch.Tensor         # (nnz,) i32
-    data: torch.Tensor            # (nnz,) f32
+    data: torch.Tensor            # (nnz,) f32 or f64: the plan's dtype
     long_rows: torch.Tensor       # (nlong,) i32 — rows longer than cut
     long_chunk_ptr: torch.Tensor  # (nlong+1,) i32 — chunks of each long row
     chunk_start: torch.Tensor     # (nchunks,) i32 — entry range of a chunk
@@ -86,10 +95,10 @@ class SpmvRoutedPlan(NamedTuple):
     slice_rows: Optional[torch.Tensor] = None  # (nslices*32,) i32, -1 pads
     slice_ptr: Optional[torch.Tensor] = None   # (nslices+1,) i64 — slots
     sell_col: Optional[torch.Tensor] = None    # (slice slots,) i32
-    sell_val: Optional[torch.Tensor] = None    # (slice slots,) f32
+    sell_val: Optional[torch.Tensor] = None    # (slice slots,) data's
     # slices split across 8, 4, 2 and 1 warps, stored in that order
     classes: Tuple[int, int, int, int] = (0, 0, 0, 0)
-    partial: Optional[torch.Tensor] = None     # (nchunks,) f32 — scratch
+    partial: Optional[torch.Tensor] = None     # (nchunks,) data's — scratch
 
     @property
     def nnz(self) -> int:
@@ -143,15 +152,16 @@ def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
 def spmv_routed_plan(indptr, indices, data, m: int, n: int, *,
                      cut: int = CUT, ch: int = CH, sell: bool = True,
                      device=None) -> SpmvRoutedPlan:
-    """The serving plan of a canonical f32 CSR (see the module docstring).
-    A tensor CSR's plan lies on its device (or on `device`, where it is
-    given); a host CSR's (numpy arrays, as JAX's plan function takes) goes
-    to the card unless `device="cpu"` is given.  `sell=False` skips the slices (an
-    SpMM-only plan, cheap enough to make per call).  `cut` and `ch` set the
-    long-row threshold and chunk length (tests lower them to reach the
-    long-row path at small sizes)."""
+    """The serving plan of a canonical f32 or f64 CSR (see the module
+    docstring), in the dtype of a tensor CSR's values, float32 for host
+    arrays.  A tensor CSR's plan lies on its device (or on `device`, where
+    it is given); a host CSR's (numpy arrays, as JAX's plan function takes)
+    goes to the card unless `device="cpu"` is given.  `sell=False` skips
+    the slices (an SpMM-only plan, cheap enough to make per call).  `cut`
+    and `ch` set the long-row threshold and chunk length (tests lower them
+    to reach the long-row path at small sizes)."""
     indptr, indices, data = csr_for_plan(indptr, indices, data, device)
-    check_csr(indptr, indices, data, m, "spmv_routed_plan")
+    check_csr(indptr, indices, data, m, "spmv_routed_plan", dtypes=DTYPES)
     if cut < 1 or ch < 1:
         raise ValueError(f"spmv_routed_plan: cut and ch must be positive, "
                          f"got {cut}, {ch}")
@@ -209,14 +219,14 @@ def spmv_routed_plan(indptr, indices, data, m: int, n: int, *,
     slot = (slice_ptr[inv[p // SLICE]] + (ent - indptr[er].long()) * SLICE
             + p % SLICE)
     sell_col = torch.zeros(nslots, dtype=INDEX_DTYPE, device=dev)
-    sell_val = torch.zeros(nslots, dtype=torch.float32, device=dev)
+    sell_val = torch.zeros(nslots, dtype=data.dtype, device=dev)
     sell_col[slot] = indices[ent]
     sell_val[slot] = data[ent]
     return plan._replace(
         slots=nslots + long_nnz, order=order.to(INDEX_DTYPE),
         slice_rows=slice_rows.to(INDEX_DTYPE), slice_ptr=slice_ptr,
         sell_col=sell_col, sell_val=sell_val, classes=tuple(classes),
-        partial=torch.empty(chunk_row.numel(), dtype=torch.float32,
+        partial=torch.empty(chunk_row.numel(), dtype=data.dtype,
                             device=dev))
 
 
@@ -240,10 +250,10 @@ def _long_partials(v: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
 def spmv_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     """Plain PyTorch version over the plan's own layout: every slot's
     product (dead slots add 0.0 * x[0]) summed into its slice row, and the
-    long rows from their chunks."""
+    long rows from their chunks, in the plan's dtype."""
     _need_sell(plan)
     dev = plan.data.device
-    y = torch.zeros(plan.m, dtype=torch.float32, device=dev)
+    y = torch.zeros(plan.m, dtype=plan.data.dtype, device=dev)
     nslots = plan.sell_val.numel()
     if nslots:
         per_slice = plan.slice_ptr[1:] - plan.slice_ptr[:-1]
@@ -262,15 +272,17 @@ def spmv_routed_plain(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
 
 
 def spmv_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
-    """y = A @ x, (m,) f32, for the CSR captured in `plan`."""
+    """y = A @ x, (m,) in the plan's dtype (x's too), for the CSR captured
+    in `plan`."""
     # one expression on every call (the plan was checked when it was
     # built); the worded checks only where it fails
     val = plan.sell_val
     if not (val is not None and isinstance(x, torch.Tensor)
-            and x.dtype == torch.float32 and x.shape == (plan.n,)
+            and x.dtype == val.dtype and x.shape == (plan.n,)
             and x.get_device() == val.get_device() and x.is_contiguous()):
         _need_sell(plan)
-        check_dense(x, 1, plan.n, plan.data.device, "spmv_routed")
+        check_dense(x, 1, plan.n, plan.data.device, "spmv_routed",
+                    val.dtype)
         raise ValueError("spmv_routed: x does not fit the plan")
     if not x.is_cuda:
         return spmv_routed_plain(x, plan)
@@ -278,7 +290,7 @@ def spmv_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     if plan.m == 0:
         return y  # a zero-size grid is a launch error
     err = _build.launch(
-        x.get_device(), "spmm_spmv_routed", plan.slice_ptr.data_ptr(),
+        x.get_device(), _SPMV_ENTRY[val.dtype], plan.slice_ptr.data_ptr(),
         plan.slice_rows.data_ptr(), plan.sell_col.data_ptr(), val.data_ptr(),
         *plan.classes, plan.indices.data_ptr(), plan.data.data_ptr(),
         plan.chunk_start.data_ptr(), plan.chunk_end.data_ptr(),
@@ -374,13 +386,17 @@ def spmm_routed_schedule(x: torch.Tensor, plan: SpmvRoutedPlan, group: int,
 
 def spmm_routed(x: torch.Tensor, plan: SpmvRoutedPlan) -> torch.Tensor:
     """Y = A @ X, (m, k) f32 row-major, for a contiguous row-major X (n, k)
-    and the CSR captured in `plan` (either kind of plan)."""
+    and the CSR captured in a float32 `plan` (either kind of plan)."""
     # one expression on every call (the plan was checked when it was
     # built); the worded checks only where it fails
     data = plan.data
     if not (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and data.dtype == torch.float32
             and x.dim() == 2 and x.shape[0] == plan.n
             and x.get_device() == data.get_device() and x.is_contiguous()):
+        if data.dtype != torch.float32:
+            raise ValueError(f"spmm_routed: the plan is {data.dtype}; the "
+                             f"kernel takes float32 plans only")
         check_dense(x, 2, plan.n, data.device, "spmm_routed")
         raise ValueError("spmm_routed: x does not fit the plan")
     if not x.is_cuda:

@@ -7,7 +7,9 @@ Port of `spmm_tpu/ops/spmm.py`.  Paths:
     of B) over a plan made for this call that holds only the chunks of the
     long rows;
   * `plan=("routed", p)` from `spmv_plan(a)`: the same kernel over the
-    serving plan's row order (ignored with `transa`, as in JAX);
+    serving plan's row order (ignored with `transa`, as in JAX, and for a
+    float64 plan, which the float32 kernel does not take: a float64 A
+    takes the float64 path below);
   * `via="dense"`: densify (kernel `densify_onehot`) and one `torch.matmul`
     with TF32 off;
   * `via="bsr_pallas"`: the hand-written BSR kernel `bsr_spmm`
@@ -75,7 +77,8 @@ def spmm(a, b, alpha=1.0, transa: bool = False, via: str = "csr",
     a_dtype = a.dtype
     a, b = promote(a, b)
     if (plan is not None and isinstance(plan, tuple) and len(plan) == 2
-            and plan[0] == "routed" and not transa):
+            and plan[0] == "routed" and not transa
+            and plan[1].data.dtype == torch.float32):
         return _scale(spmm_routed(b, plan[1]), alpha, a_dtype)
     if via == "dense":
         return _scale(_dense_spmm(_densify(a.tocsr().sum_duplicates()), b),

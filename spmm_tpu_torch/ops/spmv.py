@@ -23,7 +23,15 @@ complex64, complex128, bfloat16, an int32 A with an int32 x) JAX's
 gather-and-segment-sum path, `data * x[indices]` added row by row in
 stored order from 0 by `segment_sum_inorder` (`csrc/segment_sum.cu` on the
 card, JAX's bits on the CPU), as JAX gives every non-float32 matrix a plan
-of None.  Every card path is deterministic, bitwise on rerun.
+of None.  One departure: on the card, `spmv_plan` of a float64 matrix
+gives the routed plan in float64 ("auto" and "max"), so that a solver's
+repeated float64 SpMV (HPCG's CG) runs the serving kernel in float64
+(`spmm_spmv_routed_f64`, fma in float64); off the card it is None, as in
+the JAX package.  Every card path is deterministic, bitwise on rerun.
+
+A call is the root span `spmv`, its path the child span `spmv.routed`,
+`spmv.binned`, `spmv.onehot`, `spmv.gather` or `spmv.dense`; `spmv_plan`
+is the root span `spmv_plan.build` (`utils/profiler.span`).
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ from spmm_tpu_torch.ops.kernels.spmv_binned import (spmv_binned,
                                                     spmv_binned_plan)
 from spmm_tpu_torch.ops.kernels.spmv_onehot import (spmv_onehot,
                                                     spmv_onehot_plan)
-from spmm_tpu_torch.ops.kernels.spmv_routed import (spmv_routed,
+from spmm_tpu_torch.ops.kernels.spmv_routed import (DTYPES, spmv_routed,
                                                     spmv_routed_plan)
 from spmm_tpu_torch.ops.spgemm import _value_matmul
+from spmm_tpu_torch.utils.profiler import span
 
 _TAGS = ("routed", "binned", "onehot")
 
@@ -136,20 +145,31 @@ def spmv_plan(a, effort: str = "auto"):
     `spmv(..., plan=...)` and `spmm(..., plan=...)`, or None.
 
     `effort`: "auto" and "max" give `("routed", p)`, the serving plan
-    (SELL-32-sigma slices and chunked long rows, built once on the card);
-    "fast" gives `("binned", p)`, the plan `spmv` also makes per call.  As
-    in the JAX package, the plan is None off the accelerator (here: a
-    matrix not on a CUDA device), for non-f32 data and for an empty matrix.
+    (SELL-32-sigma slices and chunked long rows, built once on the card),
+    for float32 and float64 data; "fast" gives `("binned", p)`, the plan
+    `spmv` also makes per call, for float32 data.  As in the JAX package,
+    the plan is None off the accelerator (here: a matrix not on a CUDA
+    device), for other data and for an empty matrix; unlike it, a float64
+    matrix on the card gets the routed plan in float64 (module docstring).
     """
     if effort not in ("auto", "max", "fast"):
         raise ValueError(f"unknown effort {effort!r} (expected 'auto', "
                          "'max' or 'fast')")
+    with span("spmv_plan.build"):
+        return _plan(a, effort)
+
+
+def _plan(a, effort: str):
+    """`spmv_plan` without its span (`spmv` makes the "fast" one per
+    call)."""
     a = a.tocsr()
-    if not _on_card(a) or a.dtype != torch.float32 or a.nnz == 0:
+    routed = effort in ("auto", "max")
+    dtypes = DTYPES if routed else (torch.float32,)
+    if not _on_card(a) or a.dtype not in dtypes or a.nnz == 0:
         return None
     a = a.sum_duplicates()
     m, n = a.shape
-    if effort in ("auto", "max"):
+    if routed:
         return ("routed", spmv_routed_plan(a.indptr, a.indices, a.data, m, n))
     return ("binned", spmv_binned_plan(a.indptr, a.indices, a.data, m, n))
 
@@ -162,48 +182,57 @@ def spmv(a, x, alpha=1.0, transa: bool = False, via: str = "auto",
     vector of the matching length (ValueError).  `via`: "auto" (the binned
     kernel, or the kernel of `plan`), "binned", "onehot", "csr" or "dense".
     `via="binned"`/`"onehot"` without a plan raise ValueError off the card,
-    as the JAX package does off the TPU.
+    as the JAX package does off the TPU.  A call is the root span `spmv`
+    (module docstring).
     """
-    a = _check_sparse(a, "spmv").tocsr()
-    x = as_dense(x, a, "spmv")
-    if x.dim() != 1:
-        raise ValueError("spmv expects a 1-D dense vector x")
-    m, n = a.shape
-    expected = m if transa else n
-    if x.shape[0] != expected:
-        raise ValueError(
-            f"dimension mismatch: op(A) {a.shape} (transa={transa}) @ x "
-            f"{tuple(x.shape)}")
-    a_dtype = a.dtype
-    a, x = promote(a, x)
-    if via == "dense":
-        ad = _densify(a.sum_duplicates())
-        return _scale(_dense_spmv(ad.T if transa else ad, x), alpha, a_dtype)
-    if not transa and via in ("auto", "onehot", "binned"):
-        a = a.sum_duplicates()  # the kernels need canonical entries
-        if plan is not None and isinstance(plan, tuple) and len(plan) == 2 \
-                and plan[0] in _TAGS:
-            tag, p = plan
-        elif plan is not None:
-            tag, p = "onehot", plan  # a bare onehot plan
-        elif via in ("auto", "binned"):
-            tag, p = spmv_plan(a, effort="fast") or (None, None)
-        else:
-            tag, p = "onehot", spmv_onehot_plans(a)
-        if tag == "routed" and p is not None:
-            return _scale(spmv_routed(x, p), alpha, a_dtype)
-        if tag == "binned" and p is not None:
-            return _scale(spmv_binned(x, p), alpha, a_dtype)
-        if tag == "onehot" and p is not None:
-            return _scale(spmv_onehot(a.indptr, a.indices, a.data, x, m, n,
-                                      p), alpha, a_dtype)
-        if via in ("onehot", "binned"):
-            raise ValueError(f"spmv via={via!r} requested but the kernel "
-                             "does not apply (matrix not on a CUDA device, "
-                             "non-f32 data, or an empty matrix)")
-    a = a.sum_duplicates()
-    if transa:
-        a = a.transpose()
-    if a.dtype != torch.float32:
-        return _scale(csr_gather_sum(a, x), alpha, a_dtype)
-    return _scale(_csr_spmv(a, x), alpha, a_dtype)
+    with span("spmv"):
+        a = _check_sparse(a, "spmv").tocsr()
+        x = as_dense(x, a, "spmv")
+        if x.dim() != 1:
+            raise ValueError("spmv expects a 1-D dense vector x")
+        m, n = a.shape
+        expected = m if transa else n
+        if x.shape[0] != expected:
+            raise ValueError(
+                f"dimension mismatch: op(A) {a.shape} (transa={transa}) @ x "
+                f"{tuple(x.shape)}")
+        a_dtype = a.dtype
+        a, x = promote(a, x)
+        if via == "dense":
+            with span("spmv.dense"):
+                ad = _densify(a.sum_duplicates())
+                return _scale(_dense_spmv(ad.T if transa else ad, x), alpha,
+                              a_dtype)
+        if not transa and via in ("auto", "onehot", "binned"):
+            a = a.sum_duplicates()  # the kernels need canonical entries
+            if (plan is not None and isinstance(plan, tuple)
+                    and len(plan) == 2 and plan[0] in _TAGS):
+                tag, p = plan
+            elif plan is not None:
+                tag, p = "onehot", plan  # a bare onehot plan
+            elif via in ("auto", "binned"):
+                tag, p = _plan(a, "fast") or (None, None)
+            else:
+                tag, p = "onehot", spmv_onehot_plans(a)
+            if tag == "routed" and p is not None:
+                with span("spmv.routed"):
+                    return _scale(spmv_routed(x, p), alpha, a_dtype)
+            if tag == "binned" and p is not None:
+                with span("spmv.binned"):
+                    return _scale(spmv_binned(x, p), alpha, a_dtype)
+            if tag == "onehot" and p is not None:
+                with span("spmv.onehot"):
+                    return _scale(spmv_onehot(a.indptr, a.indices, a.data,
+                                              x, m, n, p), alpha, a_dtype)
+            if via in ("onehot", "binned"):
+                raise ValueError(f"spmv via={via!r} requested but the "
+                                 "kernel does not apply (matrix not on a CUDA "
+                                 "device, non-f32 data, or an empty matrix)")
+        a = a.sum_duplicates()
+        if transa:
+            a = a.transpose()
+        if a.dtype != torch.float32:
+            with span("spmv.gather"):
+                return _scale(csr_gather_sum(a, x), alpha, a_dtype)
+        with span("spmv.binned"):
+            return _scale(_csr_spmv(a, x), alpha, a_dtype)

@@ -188,16 +188,19 @@ def load_spmv_plan(path: str, device=None):
               if name in scalars}
     if "classes" in tensors:
         kwargs["classes"] = tuple(int(c) for c in tensors.pop("classes"))
+    # the scratch in the plan's dtype: float32, or float64 for a float64
+    # routed plan
+    dtype = tensors["data"].dtype
     if tag == "binned":
         tensors.update(_binned_views(tensors, scalars["m"],
                                      scalars["len_counters"], dev))
         tensors["partial"] = torch.empty(scalars["len_partial"],
-                                         dtype=torch.float32, device=dev)
+                                         dtype=dtype, device=dev)
     else:
         tensors["counters"] = torch.zeros(scalars["len_counters"],
                                           dtype=torch.int32, device=dev)
         if "len_partial" in scalars:
             tensors["partial"] = torch.empty(scalars["len_partial"],
-                                             dtype=torch.float32, device=dev)
+                                             dtype=dtype, device=dev)
     kwargs.update(tensors)
     return (tag, cls(**kwargs))

@@ -734,6 +734,143 @@ def test_spmv_plan_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# the routed SpMV in float64 (HPCG's dtype)
+# ---------------------------------------------------------------------------
+
+# a float64 cell's limit on value_err = max|y - r| / max|r| against the
+# benchmark's float64 reference: sound float64 runs read at most 1.01e-15
+# at HPCG's 104^3, float32 operands about 1e-8
+F64_LIMIT = 1e-13
+
+
+def _cardbench(*parts):
+    """A module of the benchmark, loaded by its path (the repository's root
+    on the import path, for the benchmark's own imports)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location(
+        "cardbench_" + "_".join(parts).replace(".", "_"),
+        root.joinpath("cardbench", *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _f64_matrix(dev, which):
+    """(indptr, indices, data, (m, n)) of HPCG's stencil at 20^3 (made on
+    the card by the benchmark's law) or of `f64_csr_arrays` at 300 x 250,
+    float64 on the card."""
+    if which == "stencil20":
+        law = _cardbench("laws", "stencil27.py")
+        a = law.make({"grid": [20, 20, 20]}, 0, torch.float64, dev)
+        return a.indptr, a.indices, a.data, a.shape
+    from torch_port_helpers import f64_csr_arrays
+
+    return (*_on(dev, *f64_csr_arrays(300, 250, seed=5)), (300, 250))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["stencil20", "random300x250"])
+@pytest.mark.parametrize("kw", [{}, {"cut": 8, "ch": 16}],
+                         ids=["slices", "chunks"])
+def test_spmv_routed_f64_on_card(dev, which, kw):
+    """The float64 kernel against the benchmark's float64 reference within
+    the cell's limit, one launch a call, bitwise on rerun, every counter
+    reset; at the plan's defaults (the stencil's rows all in slices, its
+    width-27 slices on 2 warps) and with rows past 8 entries in chunks."""
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    indptr, indices, data, (m, n) = _f64_matrix(dev, which)
+    p = kr.spmv_routed_plan(indptr, indices, data, m, n, **kw)
+    assert p.sell_val.dtype == p.partial.dtype == torch.float64
+    if kw:
+        assert p.chunk_row.numel() > p.long_rows.numel() > 0
+    elif which == "stencil20":
+        assert p.classes[2] > 0 and not p.long_rows.numel()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    before = _build.LAUNCHES["spmv_routed"]
+    got = kr.spmv_routed(x, p)
+    again = kr.spmv_routed(x, p)
+    plain = kr.spmv_routed_plain(x, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spmv_routed"] == before + 2
+    assert got.dtype == torch.float64
+    assert_bitwise(got, again)
+    assert not p.counters.any()
+    ref = _cardbench("reference", "spmv.py").spmv(
+        (indptr, indices, data, (m, n)), x)
+    for y in (got, plain):
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= F64_LIMIT, err
+
+
+@pytest.mark.gpu
+def test_spmv_plan_f64_entry_on_card(dev):
+    """`spmv_plan` of a float64 CSR on the card is the float64 routed plan
+    ("fast": None); `spmv(A, x, plan=P)` is one `spmv_routed` launch, no
+    memset, no host sync; `spmm` ignores the float64 plan and gives
+    `spmm(A, B)`'s bits."""
+    indptr, indices, data, (m, n) = _f64_matrix(dev, "stencil20")
+    a = pt.CSR.from_parts(indptr, indices, data, (m, n), canonical=True)
+    tag, p = pt.spmv_plan(a)
+    assert tag == "routed" and p.sell_val.dtype == torch.float64
+    assert pt.spmv_plan(a, effort="fast") is None
+    x = torch.rand(n, device=dev, dtype=torch.float64)
+    call = lambda: pt.spmv(a, x, plan=(tag, p))  # noqa: E731
+    _build.reset_launches()
+    y = call()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"spmv_routed": 1}
+    assert_bitwise(y, pt.spmv(a, x, plan=(tag, p)))
+    assert _host_syncs(call) == 0
+    seen = _device_events(call)
+    if seen is not None:
+        kernels, memsets = seen
+        assert memsets == 0 and len(kernels) == 1, seen
+    B = torch.rand((n, 5), device=dev, dtype=torch.float64)
+    assert_bitwise(pt.spmm(a, B, plan=(tag, p)), pt.spmm(a, B))
+
+
+def routed_f32_digest(dev) -> str:
+    """sha256 of the float32 `spmv_routed` answers of the cases above:
+    every SPMV_EDGE matrix and the row of 563 chunks, at cut 32 / ch 64
+    and cut 8 / ch 16, x standard-normal from a fixed seed."""
+    import hashlib
+
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    h = hashlib.sha256()
+    for name in list(SPMV_EDGE) + ["row_of_563_chunks"]:
+        m, n, *host = (_full_row_arrays(9000) if name == "row_of_563_chunks"
+                       else _edge_arrays(name))
+        arrays = _on(dev, *host)
+        x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            n).astype(np.float32)).to(dev)
+        for cut, ch in ((32, 64), (8, 16)):
+            p = kr.spmv_routed_plan(*arrays, m, n, cut=cut, ch=ch)
+            h.update(f"{name}|{cut}|{ch}|".encode())
+            h.update(kr.spmv_routed(x, p).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# `routed_f32_digest` on an H100 at the commit before the float64 kernel
+# (09b2aaf): the float32 instantiation keeps the float kernel's bits
+ROUTED_F32_PIN = ("8e46322332318e5e92e99ddc838acff1"
+                  "7d84fca8ffa9d05f42c57234476fdad6")
+
+
+@pytest.mark.gpu
+def test_spmv_routed_f32_keeps_its_bits(dev):
+    assert routed_f32_digest(dev) == ROUTED_F32_PIN
+
+
+# ---------------------------------------------------------------------------
 # serving: expand_routed / compress_routed, SpgemmPlan; ESC on the card
 # ---------------------------------------------------------------------------
 

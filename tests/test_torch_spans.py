@@ -6,7 +6,8 @@ A span records nothing while no profiler runs; under one, it is a host
 event of its name in the trace, and its totals hold count, total and self
 time and the root count.  Each SpGEMM entry records its root and engine
 spans and its `sync.*` readbacks, one root per call, and returns the same
-bits with the profiler on as off.
+bits with the profiler on as off; `spmv` records its root and the span of
+the path it takes, and `spmv_plan` its own root `spmv_plan.build`.
 """
 
 import time
@@ -203,3 +204,82 @@ def test_tensor_alpha_is_one_sync():
     assert profiler.span_totals()["sync.alpha"]["count"] == 1
     want = spgemm(a, b, alpha=0.5, alg=2, impl="esc")
     assert csr_bits(got) == csr_bits(want)
+
+
+# ---------------------------------------------------------------------------
+# spmv: one root `spmv` a call, the path's span inside it
+# ---------------------------------------------------------------------------
+
+SPMV_PATHS = ("routed", "binned", "onehot", "gather", "dense")
+
+
+def spmv_call(path):
+    """A call of `spmv` that takes `path`: a routed or a onehot plan, the
+    per-call float32 path (the binned kernel's), float64 data (the gather
+    path) or via="dense"."""
+    from spmm_tpu_torch.ops.kernels.spmv_onehot import spmv_onehot_plan
+    from spmm_tpu_torch.ops.kernels.spmv_routed import spmv_routed_plan
+    from spmm_tpu_torch.ops.spmv import spmv
+
+    a, _ = pair(m=40, k=30, density=0.2, seed=13)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(30)
+                         .astype(np.float32))
+    m, n = a.shape
+    if path == "routed":
+        plan = ("routed", spmv_routed_plan(a.indptr, a.indices, a.data, m,
+                                           n, cut=4, ch=8))
+        return lambda: spmv(a, x, plan=plan)
+    if path == "onehot":
+        plan = ("onehot", spmv_onehot_plan(a.indptr, m, n, ch=256))
+        return lambda: spmv(a, x, plan=plan)
+    if path == "gather":
+        a64, x64 = a.astype(torch.float64), x.double()
+        return lambda: spmv(a64, x64)
+    via = "dense" if path == "dense" else "auto"
+    return lambda: spmv(a, x, via=via)
+
+
+@pytest.mark.parametrize("path", SPMV_PATHS)
+def test_spmv_is_one_root_with_its_path_inside(path):
+    call = spmv_call(path)
+    profiler.reset_spans()
+    calls = 3
+    with cpu_profile() as prof:
+        for _ in range(calls):
+            call()
+    tot = profiler.span_totals()
+    assert set(tot) == {"spmv", f"spmv.{path}"}
+    assert roots(tot) == tot["spmv"]["roots"] == tot["spmv"]["count"] == calls
+    inner = tot[f"spmv.{path}"]
+    assert inner["count"] == calls and inner["roots"] == 0
+    assert tot["spmv"]["total_ns"] >= inner["total_ns"]
+    assert set(tot) <= {e[0] for e in host_events(prof)}
+
+
+def test_spmv_without_a_profiler_records_nothing():
+    assert profiler.span("spmv") is profiler.span("spmv.routed")
+    for path in SPMV_PATHS:
+        spmv_call(path)()
+    assert profiler.span_totals() == {}
+
+
+def test_spmv_plan_build_is_its_own_root():
+    from spmm_tpu_torch.ops.spmv import spmv_plan
+
+    a, _ = pair()
+    with cpu_profile():
+        assert spmv_plan(a) is None  # off the card, as in the JAX package
+        spmv_plan(a, effort="fast")
+    tot = profiler.span_totals()
+    assert set(tot) == {"spmv_plan.build"}
+    assert tot["spmv_plan.build"]["roots"] == \
+        tot["spmv_plan.build"]["count"] == 2
+
+
+@pytest.mark.parametrize("path", SPMV_PATHS)
+def test_spmv_bitwise_equal_with_the_profiler_on_and_off(path):
+    call = spmv_call(path)
+    off = call().numpy().tobytes()
+    with cpu_profile():
+        on = call().numpy().tobytes()
+    assert on == off

@@ -27,6 +27,22 @@ def csr_arrays(m, n, density, seed, zeros=0, empty_rows=()):
     return indptr, (flat % n).astype(np.int32), data
 
 
+def f64_csr_arrays(m, n, seed):
+    """Canonical float64 CSR (indptr, indices, data) as numpy arrays with
+    empty rows (0, 1, 77, m - 1), short rows of up to 11 entries, two full
+    rows (3, 150) and one of 120 (200); standard-normal values.  m >= 201,
+    n >= 120."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 12, m)
+    lens[[0, 1, 77, m - 1]] = 0
+    lens[[3, 150]] = n
+    lens[200] = 120
+    indices = np.concatenate([np.sort(rng.choice(n, int(k), replace=False))
+                              for k in lens]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return indptr, indices, rng.standard_normal(indices.size)
+
+
 def unsorted_csr_arrays(m, n, density, seed, max_run=2):
     """CSR (indptr, indices, data) in no column order and with duplicates:
     int(density*m*n) distinct positions, each stored 1..max_run times,
