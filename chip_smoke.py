@@ -22,7 +22,9 @@ for each:
   2. the main path, `spgemm(A, B, alg=0)`, at three cells of the reference's
      benchmark grid, held against scipy on the host (structure bitwise,
      values to rtol 1e-6 plus atol 1e-6*max|C|), bitwise on rerun, and with
-     every kernel's launch count shown non-zero;
+     the launch counts of the engine alg 0 takes at each (alg1 at the
+     1024^2 cells; ESC, which launches none of the port's kernels, at
+     8192^2/1e-3);
   3. CUDA-event timings (median of 25 runs after warm-up) of the full
      `spgemm`, the serving form `spgemm_fixed(cap=nnz)`, each layer of the
      path, and each kernel against its plain version (`extract_roll` and
@@ -570,20 +572,23 @@ def scipy_check(name, a, b, c) -> float:
 def phase2(cells):
     """The main path at every cell; returns per-kernel launch counts and
     the output nnz per cell."""
+    engines = [sg.spgemm_engine(a, b) for _, a, b in cells]
     outs = []
     _build.reset_launches()
     for name, a, b in cells:
         outs.append((pt.spgemm(a, b, alg=0), pt.spgemm(a, b, alg=0)))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    # 2 runs x 2 operands densified, 2 runs x 1 extraction, per cell; the
+    # 2 runs x 2 operands densified, 2 runs x 1 extraction, per cell that
+    # alg 0 sends to alg1; ESC launches no kernel of the port's own; the
     # SpMV/SpMM kernels are not on this path
+    dense = engines.count("alg1")
     want = dict.fromkeys(launches, 0)
-    want.update(densify_onehot=4 * len(cells), extract_roll=2 * len(cells))
+    want.update(densify_onehot=4 * dense, extract_roll=2 * dense)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes, nnzs = [], {}
-    for (name, a, b), (c1, c2) in zip(cells, outs):
+    for (name, a, b), (c1, c2), engine in zip(cells, outs, engines):
         if c1.shape != (a.shape[0], b.shape[1]) or not c1.has_canonical_format:
             raise AssertionError(f"{name}: bad output {c1}")
         if not (same_bits(c1.indptr, c2.indptr)
@@ -592,7 +597,8 @@ def phase2(cells):
             raise AssertionError(f"{name}: rerun is not bitwise identical")
         ratio = scipy_check(name, a, b, c1)
         nnzs[name] = c1.nnz
-        notes.append(f"{name} nnz={c1.nnz} err/tol={ratio:.3g} rerun bitwise")
+        notes.append(f"{name} engine={engine} nnz={c1.nnz} "
+                     f"err/tol={ratio:.3g} rerun bitwise")
     print(f"phase 2: launches {launches}; " + "; ".join(notes), flush=True)
     return launches, nnzs
 
@@ -619,6 +625,7 @@ def phase3(cells, nnzs, smi):
         peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
         row = {
             "cell": name,
+            "engine": sg.spgemm_engine(a, b),
             "spgemm_ms": median_ms(lambda: pt.spgemm(a, b, alg=0)),
             "spgemm_fixed_ms": median_ms(
                 lambda: pt.spgemm_fixed(a, b, cap=cap)),

@@ -77,6 +77,27 @@ INDEX_DTYPE = prim.INDEX_DTYPE
 # dense-intermediate auto-dispatch budget (bytes of dense temporaries)
 _DENSE_BUDGET_BYTES = int(2e9)
 
+# alg 0's engine within that budget (`_alg0_engine`), from a model of both
+# engines on the card.  alg1 does 2*m*k*n operations at the dense rate of
+# its dtype and precision: the slope of the whole alg1 call's time from
+# 4096^2 to 8192^2 at density 1e-3.  ESC costs a fixed host time plus a
+# time per product (a least-squares fit over the 18 float32 points of the
+# break-even grid, n 1024 to 8192 at densities 1e-3 to 0.1, with P from
+# 1e3 to 8.6e7) and holds a workspace per product (its peak allocation
+# over one call, C included, over P at the largest P measured: 48.3 B at
+# 1.7e8 products in float32, 54.9 B at 6.9e6 in float64; rounded up).
+# Each the mean of two runs of `tools/alg0_route.py` on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md, section 6).
+_DENSE_FLOPS = {
+    (torch.float32, "highest"): 47.4e12,
+    (torch.float32, "default"): 263e12,
+    (torch.float32, "high"): 101e12,
+    (torch.float64, "highest"): 57.8e12,  # float64 ignores the mode
+}
+_ESC_FIXED_S = 3.2e-3
+_ESC_PRODUCT_S = 0.44e-9
+_ESC_PRODUCT_BYTES = {torch.float32: 49, torch.float64: 55}
+
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -313,15 +334,22 @@ def _empty_csr(m: int, n: int, dtype, device):
                      canonical=True)
 
 
-def _spgemm_alg2_esc(a, b, alpha, joined: bool = False):
+def _esc_work(a, b):
+    """ESC's symbolic phase: (counts, ends, P) of `_work_estimation`, with
+    the product count P read on the host (the sizing readback)."""
+    if a.nnz == 0 or b.nnz == 0:
+        return None, None, 0
+    counts, ends = _work_estimation(a.indices, b.indptr)
+    return counts, ends, prim.read_host(ends[-1], "products")
+
+
+def _spgemm_alg2_esc(a, b, alpha, joined: bool = False, work=None):
+    """ESC alg2; `work` is `_esc_work(a, b)` where the caller has it."""
     from spmm_tpu_torch.sparse.csr import CSR
 
     m, k = a.shape
     n = b.shape[1]
-    if a.nnz == 0 or b.nnz == 0:
-        return _empty_csr(m, n, a.dtype, a.device)
-    counts, ends = _work_estimation(a.indices, b.indptr)
-    P = prim.read_host(ends[-1], "products")  # sizing (workEstimation)
+    counts, ends, P = _esc_work(a, b) if work is None else work
     if P == 0:
         return _empty_csr(m, n, a.dtype, a.device)
     _check_products(P, "alg=2")
@@ -475,16 +503,60 @@ def _dense_bytes(a, b) -> int:
     return 4 * (m * k + k * n + 2 * m * n)
 
 
-def _route(a, b, alg: int, impl: str) -> Tuple[str, int]:
-    """Where `spgemm` sends canonical operands: ("alg1", 1), ("blocked",
-    alg) or ("esc", alg), alg 0 resolved by the dense budget."""
-    if alg in (0, 1):
-        if alg == 1 or _dense_bytes(a, b) <= _DENSE_BUDGET_BYTES:
-            return "alg1", 1
-        alg = 2
+def _alg0_engine(m: int, k: int, n: int, dtype, precision: str,
+                 products) -> Tuple[str, str]:
+    """alg 0's engine within the dense budget, ("alg1" or "esc", why), by
+    the model of both on the card (`_DENSE_FLOPS`, `_ESC_FIXED_S`,
+    `_ESC_PRODUCT_S`, `_ESC_PRODUCT_BYTES`).  `products()` gives the exact
+    product count P; it is called only where alg1's modelled time passes
+    ESC's fixed cost, so a cheap dense product costs no readback.  ESC
+    computes every product in IEEE arithmetic in every mode, so its answer
+    is never less precise than the mode asks.  Dtypes without a dense rate
+    take alg1, as the budget alone would send them."""
+    mode = precision if dtype == torch.float32 else "highest"
+    rate = _DENSE_FLOPS.get((dtype, mode))
+    if rate is None:
+        return "alg1", f"no cost model for {dtype}"
+    dense_s = 2 * m * k * n / rate
+    if dense_s <= _ESC_FIXED_S:
+        return "alg1", (f"dense {dense_s * 1e3:.3g} ms within ESC's fixed "
+                        f"{_ESC_FIXED_S * 1e3:.3g} ms")
+    P = products()
+    if P >= 2**31:
+        return "alg1", f"P={P} past ESC's int32 workspace"
+    workspace = P * _ESC_PRODUCT_BYTES[dtype]
+    if workspace > _DENSE_BUDGET_BYTES:
+        return "alg1", f"ESC's workspace ({workspace} B) past the budget"
+    esc_s = _ESC_FIXED_S + P * _ESC_PRODUCT_S
+    why = f"P={P}: ESC {esc_s * 1e3:.3g} ms, dense {dense_s * 1e3:.3g} ms"
+    return ("esc" if esc_s < dense_s else "alg1"), why
+
+
+def _route(a, b, alg: int, impl: str, precision: str = "highest"):
+    """Where `spgemm` sends canonical operands: (route, alg, why, work),
+    route "alg1", "blocked" or "esc", `why` alg 0's reason.  alg 0 takes
+    `_alg0_engine`'s choice within the dense budget and alg 2 past it;
+    `work` is ESC's `_esc_work` where that choice read it, else None."""
+    if alg == 0 and _dense_bytes(a, b) <= _DENSE_BUDGET_BYTES:
+        work = None
+
+        def products():
+            nonlocal work
+            work = _esc_work(a, b)
+            return work[2]
+        m, k = a.shape
+        engine, why = _alg0_engine(m, k, b.shape[1], a.dtype, precision,
+                                   products)
+        if engine == "esc":
+            return "esc", 2, why + " → alg2 esc", work
+        return "alg1", 1, why + " → alg1", None
+    if alg == 1:
+        return "alg1", 1, "", None
+    why = "dense footprint too large → alg2" if alg == 0 else ""
     use_blocked = (impl == "dense"
                    or (impl == "auto" and _blocked_feasible(a, b)))
-    return ("blocked" if use_blocked and a.nnz and b.nnz else "esc"), alg
+    route = "blocked" if use_blocked and a.nnz and b.nnz else "esc"
+    return route, max(alg, 2), why, None
 
 
 def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
@@ -492,9 +564,21 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
            impl: str = "auto"):
     """C = alpha * A @ B, both CSR, as a canonical CSR on the operands'
     device.  API of the modified `cupyx.cusparse.spgemm` (cusparse.py:2007):
-    alg 1 is the dense-intermediate path; 0 takes it when the dense
-    temporaries fit `_DENSE_BUDGET_BYTES`, else alg 2; `chunk_fraction`
-    applies to alg 3.
+    alg 1 is the dense-intermediate path; alg 2 expands, sorts and
+    compresses the products (or runs the blocked engine, below);
+    `chunk_fraction` applies to alg 3.
+
+    alg 0 takes alg 2 where the dense temporaries pass
+    `_DENSE_BUDGET_BYTES`, as in the JAX package.  Within the budget it
+    departs from JAX, which always takes alg1 there: it takes alg1 or ESC
+    alg2 by a model of both on the card (`_alg0_engine`), from m, k, n,
+    the dtype, `precision` and the exact product count P, which it reads
+    only where the dense GEMMs cost more than ESC's fixed host cost (one
+    readback, handed on to ESC).  Sparse products of large matrices
+    (8192^2 at density 1e-3: 0.55 M products against two 8192^3 GEMMs)
+    run ESC.  Either engine gives the exact structure, explicit zeros kept;
+    ESC's values are IEEE products summed by JAX's fixed tree in every
+    precision mode.
 
     `impl` selects the alg2/alg3 engine as in the JAX package: "dense"
     and, where A/B dense panels fit the budget, "auto" run the blocked
@@ -511,15 +595,15 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
         _check_precision(precision)
         a = a.sum_duplicates()
         b = b.sum_duplicates()
-        route, resolved = _route(a, b, alg, impl)
+        route, resolved, why, work = _route(a, b, alg, impl, precision)
+        if verbose and alg == 0:
+            print(f"[spgemm] auto: {why}")
         if route == "alg1":
             if verbose:
                 print(f"[spgemm] alg1 dense-intermediate "
                       f"({_dense_bytes(a, b)} B)")
             with span("spgemm.alg1"):
                 return _spgemm_alg1(a, b, alpha, precision)
-        if verbose and alg == 0:
-            print("[spgemm] auto: dense footprint too large → alg2")
         if route == "blocked":
             from spmm_tpu_torch.ops import spgemm_blocked as blocked
 
@@ -533,23 +617,26 @@ def spgemm(a, b, alpha=1.0, alg: int = 0, chunk_fraction: float = 0.2,
                                                    precision, verbose)
         if resolved == 2:
             with span("spgemm.alg2.esc"):
-                return _spgemm_alg2_esc(a, b, alpha)
+                return _spgemm_alg2_esc(a, b, alpha, work=work)
         with span("spgemm.alg3.esc"):
             return _spgemm_alg3_esc(a, b, alpha, chunk_fraction, verbose)
 
 
-def spgemm_engine(a, b, alg: int = 0, chunk_fraction: float = 0.2) -> str:
-    """The engine `spgemm(a, b, alg=alg, chunk_fraction=chunk_fraction)`
-    runs, by the rules its dispatch follows (`_route`,
-    `spgemm_blocked.alg2_engine`, `spgemm_blocked.alg3_engine`): "alg1",
-    "esc", alg2's "unrolled" or "scan", or alg3's "group", "unrolled",
-    "scan3" or "scan2".  It computes no product; alg3's blocked rule reads
-    the operands' indices to the host."""
+def spgemm_engine(a, b, alg: int = 0, chunk_fraction: float = 0.2,
+                  precision: str = "highest") -> str:
+    """The engine `spgemm(a, b, alg=alg, chunk_fraction=chunk_fraction,
+    precision=precision)` runs, by the rules its dispatch follows
+    (`_route`, `spgemm_blocked.alg2_engine`, `spgemm_blocked.alg3_engine`):
+    "alg1", "esc", alg2's "unrolled" or "scan", or alg3's "group",
+    "unrolled", "scan3" or "scan2".  It computes no product; alg 0 may read
+    the product count to the host, and alg3's blocked rule the operands'
+    indices."""
     a, b = _check_operands(a, b)
     _check_alg(alg, "auto")
+    _check_precision(precision)
     a = a.sum_duplicates()
     b = b.sum_duplicates()
-    route, alg = _route(a, b, alg, "auto")
+    route, alg, _, _ = _route(a, b, alg, "auto", precision)
     if route != "blocked":
         return route
     from spmm_tpu_torch.ops import spgemm_blocked as blocked

@@ -166,21 +166,23 @@ ENGINE_CASES = {
                        "_SCAN3_MAX_TILES": 0}),
     "alg2 esc": (2, "esc"),
     "alg3 esc": (3, "esc"),
+    # alg 0 within the dense budget, with ESC's modelled cost set to nothing
+    "alg0 esc": (0, {"_ESC_FIXED_S": 0.0, "_ESC_PRODUCT_S": 0.0}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
 def test_spgemm_engine_names_what_runs(monkeypatch, case):
     """`spgemm_engine` names the engine `spgemm` then runs, found here by
-    wrapping each engine's entry, with the blocked engines' limits set so
-    that each is reached at 200^2."""
+    wrapping each engine's entry, with the blocked engines' limits (or
+    alg 0's cost model) set so that each is reached at 200^2."""
     bl = importlib.import_module("spmm_tpu_torch.ops.spgemm_blocked")
     alg, limits = ENGINE_CASES[case]
     if limits == "esc":
         monkeypatch.setattr(sg, "_blocked_feasible", lambda a, b: False)
     else:
         for k, v in limits.items():
-            monkeypatch.setattr(bl, k, v)
+            monkeypatch.setattr(bl if hasattr(bl, k) else sg, k, v)
     ran = []
 
     def wrap(mod, fn, name):

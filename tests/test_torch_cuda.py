@@ -1088,6 +1088,41 @@ def test_host_syncs_on_card(dev):
     assert _host_syncs(u.sum_duplicates) == 1
 
 
+@pytest.mark.gpu
+def test_alg0_runs_esc_at_8192_sparse(dev):
+    """spgemm(A, B) at 8192^2, density 1e-3 (0.55 M products), opens
+    `spgemm.alg2.esc` and not `spgemm.alg1`, with ESC's two readbacks: its
+    answer is bitwise `alg=2, impl="esc"` and its own rerun, alg1's
+    structure, and alg1's values within 1e-6 of max|C|."""
+    from spmm_tpu_torch.utils import profiler
+
+    a = pt.random(8192, 8192, 1e-3, format="csr", seed=12, device=dev)
+    b = pt.random(8192, 8192, 1e-3, format="csr", seed=13, device=dev)
+    pt.spgemm(a, b)
+    profiler.reset_spans()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = pt.spgemm(a, b)
+        totals = profiler.span_totals()
+    finally:
+        profiler.reset_spans()
+    assert {n for n in totals if not n.startswith("sync.")} == {
+        "spgemm", "spgemm.alg2.esc"}
+    assert sorted(n for n in totals if n.startswith("sync.")) == [
+        "sync.nnz", "sync.products"]
+    assert _host_syncs(lambda: pt.spgemm(a, b)) == 2
+    for other in (pt.spgemm(a, b, alg=2, impl="esc"), pt.spgemm(a, b)):
+        for x, y in ((got.indptr, other.indptr),
+                     (got.indices, other.indices), (got.data, other.data)):
+            assert_bitwise(x, y)
+    c1 = pt.spgemm(a, b, alg=1)
+    assert_bitwise(got.indptr, c1.indptr)
+    assert_bitwise(got.indices, c1.indices)
+    err = (got.data - c1.data).abs().max().item()
+    assert err <= 1e-6 * c1.data.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # device defaults; densify_onehot_pattern; the blocked alg2/alg3 engines
 # ---------------------------------------------------------------------------

@@ -247,6 +247,136 @@ def test_alg0_past_budget_raises(monkeypatch):
     assert pt.spgemm(a, b, alg=1).nnz > 0
 
 
+def _reads(monkeypatch):
+    """The `what` of every host read `spgemm` makes, in order."""
+    reads = []
+    inner = prim.read_host
+
+    def read_host(x, what):
+        reads.append(what)
+        return inner(x, what)
+    monkeypatch.setattr(prim, "read_host", read_host)
+    return reads
+
+
+def test_alg0_takes_esc_at_8192_sparse():
+    """8192^2 at density 1e-3 (0.55 M products against two 8192^3
+    GEMMs): alg 0 names and runs ESC, as the benchmark's auto cell."""
+    a = pt.random(8192, 8192, 1e-3, format="csr", seed=12, device="cpu")
+    b = pt.random(8192, 8192, 1e-3, format="csr", seed=13, device="cpu")
+    assert pt_sg._dense_bytes(a, b) <= pt_sg._DENSE_BUDGET_BYTES
+    assert pt_sg.spgemm_engine(a, b) == "esc"
+    assert pt_sg.spgemm_engine(a, b, alg=1) == "alg1"
+
+
+def test_alg0_keeps_cheap_dense_on_alg1_with_no_added_read(monkeypatch):
+    """1024^2 at 0.1: the dense GEMMs cost less than ESC's fixed cost, so
+    alg 0 runs alg1 exactly, with alg1's one readback and no product
+    count read."""
+    a_ref, a = pair(1024, 1024, 0.1, 21)
+    b_ref, b = pair(1024, 1024, 0.1, 22)
+    assert pt_sg.spgemm_engine(a, b) == "alg1"
+
+    def no_work(*args):
+        raise AssertionError("alg 0 read the product count")
+    monkeypatch.setattr(pt_sg, "_esc_work", no_work)
+    reads = _reads(monkeypatch)
+    got = pt.spgemm(a, b)
+    assert reads == ["nnz"]
+    assert_csr_bitwise(got, pt.spgemm(a, b, alg=1))
+    assert_csr_match(got, st.spgemm(a_ref, b_ref, alg=0))
+
+
+def test_alg0_esc_is_alg2_esc_bitwise(monkeypatch, capsys):
+    """With ESC's modelled cost set to nothing, alg 0 runs ESC alg2 at a
+    small shape: bitwise `alg=2, impl="esc"`, scipy's product, one
+    estimate of the work and one read of P, handed on to ESC."""
+    monkeypatch.setattr(pt_sg, "_ESC_FIXED_S", 0.0)
+    monkeypatch.setattr(pt_sg, "_ESC_PRODUCT_S", 0.0)
+    _, a, _, b = _operands(*SPGEMM_CASES["nonsquare"])
+    assert pt_sg.spgemm_engine(a, b) == "esc"
+    estimates = []
+    inner = pt_sg._work_estimation
+    monkeypatch.setattr(pt_sg, "_work_estimation",
+                        lambda *x: estimates.append(1) or inner(*x))
+    reads = _reads(monkeypatch)
+    got = pt.spgemm(a, b, verbose=True)
+    assert "→ alg2 esc" in capsys.readouterr().out
+    assert (estimates, reads) == ([1], ["products", "nnz"])
+    assert_csr_bitwise(got, pt.spgemm(a, b, alg=2, impl="esc"))
+    want = (a.to_scipy() @ b.to_scipy()).tocsr()
+    want.sort_indices()
+    assert_csr_match(got, want)
+
+
+# (m = k = n, dtype, precision, P or None where it must not be read) ->
+# the engine, with the synthetic model of `test_alg0_engine_table`: dense
+# rates 1e12 ("highest"), 1e13 ("default"), 3e12 ("high") and 5e11
+# (float64), ESC 1 ms fixed, 1 ns and 10 B a product (20 B in float64), a
+# budget of 1e9 B.  At n = 2000 the dense GEMMs take 16 ms ("highest"),
+# 5.33 ms ("high") and 1.6 ms ("default"); ESC 4 ms at P = 3e6, 6 ms at
+# P = 5e6.
+ALG0_TABLE = {
+    "cheap dense, P never read": (100, torch.float32, "highest", None,
+                                  "alg1"),
+    "sparse products": (1000, torch.float32, "highest", 10**5, "esc"),
+    "ESC slower than dense": (1000, torch.float32, "highest", 2 * 10**6,
+                              "alg1"),
+    "P past 2^31": (10**5, torch.float32, "highest", 2**31, "alg1"),
+    "workspace past the budget": (10**5, torch.float32, "highest",
+                                  10**8 + 1, "alg1"),
+    "highest, P 5e6": (2000, torch.float32, "highest", 5 * 10**6, "esc"),
+    "high, P 5e6": (2000, torch.float32, "high", 5 * 10**6, "alg1"),
+    "high, P 3e6": (2000, torch.float32, "high", 3 * 10**6, "esc"),
+    "default, P 3e6": (2000, torch.float32, "default", 3 * 10**6, "alg1"),
+    "default, cheaper than ESC's fixed": (1000, torch.float32, "default",
+                                          None, "alg1"),
+    "float64 in any mode": (1000, torch.float64, "default", 10**5, "esc"),
+    "float64 workspace": (10**4, torch.float64, "highest", 6 * 10**7,
+                          "alg1"),
+    "float32 at that P": (10**4, torch.float32, "highest", 6 * 10**7,
+                          "esc"),
+    "complex64 keeps the budget's rule": (10**4, torch.complex64,
+                                          "highest", None, "alg1"),
+    "bfloat16 keeps the budget's rule": (10**4, torch.bfloat16, "highest",
+                                         None, "alg1"),
+}
+
+
+@pytest.mark.parametrize("case", list(ALG0_TABLE))
+def test_alg0_engine_table(monkeypatch, case):
+    n, dtype, precision, P, want = ALG0_TABLE[case]
+    monkeypatch.setattr(pt_sg, "_DENSE_FLOPS", {
+        (torch.float32, "highest"): 1e12, (torch.float32, "default"): 1e13,
+        (torch.float32, "high"): 3e12, (torch.float64, "highest"): 5e11})
+    monkeypatch.setattr(pt_sg, "_ESC_FIXED_S", 1e-3)
+    monkeypatch.setattr(pt_sg, "_ESC_PRODUCT_S", 1e-9)
+    monkeypatch.setattr(pt_sg, "_ESC_PRODUCT_BYTES",
+                        {torch.float32: 10, torch.float64: 20})
+    monkeypatch.setattr(pt_sg, "_DENSE_BUDGET_BYTES", 10**9)
+    asked = []
+
+    def products():
+        asked.append(1)
+        return P
+    engine, why = pt_sg._alg0_engine(n, n, n, dtype, precision, products)
+    assert (engine, bool(asked)) == (want, P is not None), why
+
+
+def test_alg0_engine_at_the_measured_constants():
+    """The card's constants: 8192^2 at 1e-3 (0.55 M products) takes ESC in
+    "highest"; 1024^3 never reads P in any mode; 4 G products refuse."""
+    def never():
+        raise AssertionError("P read")
+    for precision in pt_sg.PRECISIONS:
+        assert pt_sg._alg0_engine(1024, 1024, 1024, torch.float32,
+                                  precision, never)[0] == "alg1"
+    assert pt_sg._alg0_engine(8192, 8192, 8192, torch.float32, "highest",
+                              lambda: 550_000)[0] == "esc"
+    assert pt_sg._alg0_engine(8192, 8192, 8192, torch.float32, "highest",
+                              lambda: 2**32)[0] == "alg1"
+
+
 def test_bad_arguments_raise():
     _, a, _, b = _operands(*SPGEMM_CASES["nonsquare"])
     with pytest.raises(ValueError, match="unknown alg"):
