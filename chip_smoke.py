@@ -23,14 +23,17 @@ for each:
      benchmark grid, held against scipy on the host (structure bitwise,
      values to rtol 1e-6 plus atol 1e-6*max|C|), bitwise on rerun, and with
      the launch counts of the engine alg 0 takes at each (alg1 at the
-     1024^2 cells; ESC, which launches none of the port's kernels, at
-     8192^2/1e-3);
+     1024^2 cells; ESC, whose count and compress kernels launch once each
+     a call, at 8192^2/1e-3);
   3. CUDA-event timings (median of 25 runs after warm-up) of the full
      `spgemm`, the serving form `spgemm_fixed(cap=nnz)`, each layer of the
      path, and each kernel against its plain version (`extract_roll` and
      `densify_onehot` also per call of 200 back to back and by their device
      times); the device's busy
-     time per `spgemm` from a torch.profiler trace, and its idle share;
+     time per `spgemm` from a torch.profiler trace, and its idle share; at
+     the cell alg 0 sends to ESC, ESC's count and compress kernels
+     (`esc_compress`) on its sorted products bitwise against their plain
+     version, per call, by their device times and beside the plain version;
   4. the four SpMV/SpMM kernels against their plain versions and scipy's
      float64 product, per row within 1e-6 of the row's absolute sum
      (|A|@|x|)_i, at five cells (SpMV 1024^2/0.1, 16384^2/5e-3 and a
@@ -192,10 +195,11 @@ Then the card's name and power limit, one JSON line of per-kernel results
 (time, plain version's time, launches on the main path, the least time the
 card could take for the same work and what bounds it, and the time of one
 PyTorch library call computing the same function, where there is one) for
-the eleven TPU kernels' counterparts and the port's own `spmv_binned_plan`
-and `segment_sum` (phase 22's launches added to those of the kernels it
-runs; `spmv_routed`'s row also holds its float64 instance at HPCG's grid,
-from phase 15), and
+the eleven TPU kernels' counterparts and the port's own `spmv_binned_plan`,
+`segment_sum` and `esc_compress` (phase 22's launches added to those of
+the kernels it runs; `spmv_routed`'s row also holds its float64 instance
+at HPCG's grid, from phase 15; `esc_compress`'s, from phase 3 at
+8192^2/1e-3, its device time and its bound in bytes), and
 as the last line `{"ok": true, "device": {...}}`.  Any failure raises and
 exits non-zero;
 so does a machine without CUDA.  It imports neither jax nor spmm_tpu.
@@ -225,6 +229,7 @@ from spmm_tpu_torch.ops.kernels import _build
 from spmm_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from spmm_tpu_torch.ops.kernels.densify_mxu import (
     _launch as densify_mxu_launch, csr_densify_mxu, csr_densify_mxu_plain)
+from spmm_tpu_torch.ops.kernels import esc_compress as ec
 from spmm_tpu_torch.ops.kernels.densify_onehot import (
     densify_onehot, densify_onehot_pattern, densify_onehot_pattern_plain,
     densify_onehot_plain)
@@ -580,11 +585,13 @@ def phase2(cells):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     # 2 runs x 2 operands densified, 2 runs x 1 extraction, per cell that
-    # alg 0 sends to alg1; ESC launches no kernel of the port's own; the
-    # SpMV/SpMM kernels are not on this path
+    # alg 0 sends to alg1; 2 runs x 1 count and 1 compress per cell that it
+    # sends to ESC; the SpMV/SpMM kernels are not on this path
     dense = engines.count("alg1")
+    esc = engines.count("esc")
     want = dict.fromkeys(launches, 0)
-    want.update(densify_onehot=4 * dense, extract_roll=2 * dense)
+    want.update(densify_onehot=4 * dense, extract_roll=2 * dense,
+                esc_count=2 * esc, esc_compress=2 * esc)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     notes, nnzs = [], {}
@@ -657,6 +664,8 @@ def phase3(cells, nnzs, smi):
         row["spgemm_idle_share"] = (None if busy is None
                                     else 1.0 - busy / row["spgemm_ms"])
         row["spgemm_device_top_ms"] = top
+        if row["engine"] == "esc":
+            row.update(esc_compress_row(a, b))
         if name == CELLS[0][0]:
             # comparator only, never on the port's path: torch's own
             # (cuSPARSE) CSR @ CSR
@@ -670,6 +679,53 @@ def phase3(cells, nnzs, smi):
         del ad, bd, a_pat, b_pat, c, mask
         print(f"phase 3 [{smi}]: " + json.dumps(row), flush=True)
     return rows
+
+
+def esc_compress_row(a, b) -> dict:
+    """ESC's count and compress kernels on the sorted products of A @ B:
+    bitwise their plain version (raises otherwise), the wrapper's time per
+    call (count and compress), the two kernels' device times, the plain
+    version's time, torch's `coalesce` of the same sorted triplets (the
+    library's call that sums runs: in its own order, not the tree's, and
+    without alpha), and the bytes-once bound (rows, columns and values
+    read, col, values and indptr written)."""
+    m = a.shape[0]
+    counts, ends, P = sg._esc_work(a, b)
+    row_s, col_s, val_s, _ = sg._esc_expand_sort_count(
+        a.rows, a.indices, a.data, b.indptr, b.indices, b.data, counts, ends,
+        P, m, b.shape[1])
+    nnz = int(ec.count_runs(row_s, col_s))
+
+    def run(count, compress):
+        count(row_s, col_s)
+        out = (torch.empty(m + 1, dtype=torch.int32, device=a.device),
+               torch.empty(nnz, dtype=torch.int32, device=a.device),
+               torch.empty(nnz, dtype=val_s.dtype, device=a.device))
+        compress(row_s, col_s, val_s, 1.5, *out)
+        return out
+
+    kernels = lambda: run(ec.count_runs, ec.compress_runs)  # noqa: E731
+    plain = lambda: run(ec.count_runs_plain,  # noqa: E731
+                        ec.compress_runs_plain)
+    if int(ec.count_runs_plain(row_s, col_s)) != nnz or not all(
+            same_bits(x, y) for x, y in zip(kernels(), plain())):
+        raise AssertionError("esc_compress: kernels differ from the plain "
+                             "version")
+    coo = torch.sparse_coo_tensor(torch.stack([row_s, col_s]).long(), val_s,
+                                  (m, b.shape[1]), check_invariants=False)
+    count_dev = kernel_ms(lambda: ec.count_runs(row_s, col_s), "count_runs")
+    compress_dev = kernel_ms(kernels, "compress_runs")
+    return {"esc_products": P, "esc_nnz": nnz,
+            "esc_compress_ms": median_ms(kernels),
+            "esc_compress_device_ms": (None if None in (count_dev,
+                                                        compress_dev)
+                                       else count_dev + compress_dev),
+            "esc_count_device_ms": count_dev,
+            "esc_compress_plain_ms": median_ms(plain),
+            "esc_compress_library_ms": median_ms(coo.coalesce),
+            "esc_compress_bound_bytes": (P * (8 + val_s.element_size())
+                                         + nnz * (4 + val_s.element_size())
+                                         + 4 * (m + 1))}
 
 
 # --------------------------------------------------------------------------
@@ -2872,7 +2928,8 @@ KERNEL_FUNCS = {
     "onehot_spmv": "spmv_onehot", "expand_routed": "expand_routed",
     "compress_routed": "compress_routed", "bsr_spmm": "bsr_spmm",
     "densify_tiles": "csr_densify_mxu",
-    "segment_sum_inorder": "segment_sum"}
+    "segment_sum_inorder": "segment_sum", "count_runs": "esc_compress",
+    "compress_runs": "esc_compress"}
 
 
 # the hand-written kernels each SpGEMM alg's path shows at phase 21's
@@ -3472,6 +3529,7 @@ def main():
     torch.cuda.empty_cache()
     phase21_apart(smi)
     launches22 = phase22_apart(smi)
+    t_esc = next(r for r in rows if r["engine"] == "esc")  # 8192^2/1e-3
     t_sv = rows9[0]  # serving 1024^2/0.1
     t_pat = rows11[0]  # blocked 1024^2/0.1: the pattern of B
     head = rows[0]
@@ -3579,6 +3637,22 @@ def main():
                bound(4 * t_pl["nnz"] + 20 * t_pl["m"], t_pl["nnz"]),
                t_pl["segment_sum_library_ms"]),
     ]
+    # ESC's count and compress (JAX: jnp ops) at 8192^2/1e-3, alpha 1.5:
+    # the sorted triplets read once, col, vals and indptr written once;
+    # the library's yardstick is `coalesce`, which sums the runs in its own
+    # order (not the doubling tree's) and leaves alpha out
+    kernels.append(dict(kernel(
+        "esc_compress", "esc_compress.cu",
+        "none: the port's own kernels (JAX: the jnp ops of "
+        "spmm_tpu/ops/spgemm.py:478 `_compress` and "
+        "spmm_tpu/ops/_primitives.py:282 `segsum_tree`)",
+        sum(launches[k] + l22(k, 0) for k in ("esc_count", "esc_compress")),
+        0.0,
+        t_esc["esc_compress_ms"], t_esc["esc_compress_plain_ms"],
+        bound(t_esc["esc_compress_bound_bytes"]),
+        t_esc["esc_compress_library_ms"]),
+        device_ms=t_esc["esc_compress_device_ms"],
+        bound_bytes=t_esc["esc_compress_bound_bytes"]))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched by their path: {missing}")

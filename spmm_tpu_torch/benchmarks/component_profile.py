@@ -6,7 +6,8 @@
 Port of `benchmarks/component_profile.py`, with the port's counterpart of
 each stage: alg1's densify (kernel `densify_onehot`), value GEMM in IEEE
 float32 and in TF32, bf16 pattern GEMM, the whole dense compute and the
-extract (kernel `extract_roll`); ESC's expand, lexsort and compress; SpMV
+extract (kernel `extract_roll`); ESC's expand, lexsort and compress
+(kernel `esc_compress.compress_runs` on the card); SpMV
 over the binned kernel and over the dense route, SpMM over `spmm_routed`
 (`via="csr"`) and over the dense route, X of 128 columns; and alg1, alg2
 and alg3 (chunk_fraction 0.2) end to end.  A and B come from the port's

@@ -62,24 +62,18 @@
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using spmm::kPrefix;
+using spmm::load_status;
+using spmm::look_back;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kAggregate = 1ull << 32;  // flag: count only
-constexpr unsigned long long kPrefix = 2ull << 32;     // flag: inclusive
 constexpr int kTailSlots = kThreads * 64;  // output slots a tail item zeroes
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
 
 // Bit b set where byte b of w is non-zero (four bytes -> four bits).
 __device__ __forceinline__ unsigned nibble(unsigned w) {
@@ -108,49 +102,6 @@ __device__ __forceinline__ unsigned long long load_bits(
     if (mask[cell + j] != 0) bits |= 1ull << j;
   }
   return bits;
-}
-
-// The exclusive prefix of `tile` over the tiles before it, by warp 0 (all
-// 32 lanes return it), after publishing the tile's count `mine`.
-__device__ int look_back(unsigned long long* tiles, int tile, int mine,
-                         int lane) {
-  if (tile == 0) {
-    if (lane == 0) store_status(tiles, kPrefix | mine);
-    return 0;
-  }
-  if (lane == 0) store_status(tiles + tile, kAggregate | mine);
-  // lane l reads tile look - l; a window in which a tile it needs has not
-  // published yet is read again.  (Eight windows a round trip, all loads
-  // in flight, and blocks of 512 or 1024 threads were slower on the
-  // H100.)
-  long long look = tile - 1;
-  int prefix = 0;
-  while (true) {
-    const long long idx = look - lane;
-    const unsigned long long s = idx >= 0 ? load_status(tiles + idx)
-                                          : kPrefix;
-    const unsigned flag = static_cast<unsigned>(s >> 32);
-    const unsigned waiting = __ballot_sync(kFull, flag == 0);
-    const unsigned prefixed = __ballot_sync(kFull, flag == 2);
-    // the lanes up to and including the nearest prefix: all 32 if none
-    const unsigned need =
-        prefixed ? ((prefixed & (0u - prefixed)) << 1) - 1u : kFull;
-    if (waiting & need) {
-      __nanosleep(32);
-      continue;
-    }
-    int v = (need >> lane) & 1 ? static_cast<int>(static_cast<unsigned>(s))
-                               : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    prefix += v;
-    if (prefixed) break;
-    look -= 32;
-  }
-  if (lane == 0) {
-    store_status(tiles + tile, kPrefix | static_cast<unsigned>(prefix + mine));
-  }
-  return prefix;
 }
 
 // status[0] is the ticket; status[1 + t] tile t's status word; both zero

@@ -43,12 +43,14 @@ LAUNCHES = {"densify_onehot": 0, "densify_onehot_pattern": 0,
             "extract_roll": 0, "spmv_binned": 0,
             "spmv_routed": 0, "spmm_routed": 0, "spmv_onehot": 0,
             "expand_routed": 0, "compress_routed": 0, "bsr_spmm": 0,
-            "csr_densify_mxu": 0, "segment_sum": 0, "spmv_binned_plan": 0}
+            "csr_densify_mxu": 0, "segment_sum": 0, "spmv_binned_plan": 0,
+            "esc_count": 0, "esc_compress": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # indptr, indices, data, val, pat, m, k, width, stream
     "spmm_densify": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
@@ -89,6 +91,12 @@ _SIGNATURES = {
                            _P),
     # indptr, indices, data, out, m, k, stream
     "spmm_densify_mxu": (_P, _P, _P, _P, _I, _I, _P),
+    # row, col, P, count, stream
+    "spmm_esc_count": (_P, _P, _I, _P, _P),
+    # row, col, val, P, alpha_re, alpha_im, indptr, row_lo, nrows,
+    # base_out, col_out, val_out, nnz, ws, dtype, stream
+    "spmm_esc_compress": (_P, _P, _P, _I, _D, _D, _P, _I, _I, _I, _P, _P,
+                          _I, _P, _I, _P),
 }
 # the routed SpMV over a float64 plan takes the float32 entry's arguments
 _SIGNATURES["spmm_spmv_routed_f64"] = _SIGNATURES["spmm_spmv_routed"]

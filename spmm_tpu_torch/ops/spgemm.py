@@ -23,10 +23,13 @@ in the operands' dtype and the tree is the JAX package's, so the values
 are bitwise those
 of `spmm_tpu` (and of `native/spgemm_cross_check.cpp`), on every device, for
 every chunk fraction; a float64 product and tree give JAX's float64 bits
-on the CPU too.  ESC has no Pallas kernel; it is plain PyTorch here as
-it is plain JAX there.  `spgemm` sends alg2/alg3 to the blocked dense
-engines where A and B dense panels fit the budget (`_blocked_feasible`) and
-to ESC elsewhere, as the JAX package does.
+on the CPU too.  ESC has no Pallas kernel: expand and sort are plain
+PyTorch here as they are plain JAX there; the count and the compress run
+two kernels of the port's own on the card (`kernels/esc_compress.py`,
+every dtype), which sum each run in the tree's association.
+`spgemm` sends alg2/alg3 to the blocked dense engines where A and B dense
+panels fit the budget (`_blocked_feasible`) and to ESC elsewhere, as the
+JAX package does.
 
 Dtypes are JAX's: float32, float64, complex64, complex128 and bfloat16,
 each computed in its own type (the GEMM is cuBLAS's SGEMM, DGEMM, CGEMM,
@@ -69,6 +72,7 @@ import torch
 
 from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels.densify_onehot import densify_onehot
+from spmm_tpu_torch.ops.kernels.esc_compress import compress_runs, count_runs
 from spmm_tpu_torch.ops.kernels.extract_roll import extract_roll
 from spmm_tpu_torch.utils.profiler import span
 
@@ -83,19 +87,20 @@ _DENSE_BUDGET_BYTES = int(2e9)
 # 4096^2 to 8192^2 at density 1e-3.  ESC costs a fixed host time plus a
 # time per product (a least-squares fit over the 18 float32 points of the
 # break-even grid, n 1024 to 8192 at densities 1e-3 to 0.1, with P from
-# 1e3 to 8.6e7) and holds a workspace per product (its peak allocation
-# over one call, C included, over P at the largest P measured: 48.3 B at
-# 1.7e8 products in float32, 54.9 B at 6.9e6 in float64; rounded up).
-# Each the mean of two runs of `tools/alg0_route.py` on an NVIDIA H100
-# 80GB HBM3 at 700 W (PERF.md, section 6).
+# 1e3 to 8.6e7; measured since ESC's compress runs as kernels) and holds
+# a workspace per product (its peak allocation over one call, C included,
+# over P at the largest P measured: 48.3 B at 1.7e8 products in float32,
+# 52.7-54.9 B at 6.9e6 in float64; rounded up).  Each the mean of two runs
+# of `tools/alg0_route.py` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# section 6).
 _DENSE_FLOPS = {
     (torch.float32, "highest"): 47.4e12,
     (torch.float32, "default"): 263e12,
     (torch.float32, "high"): 101e12,
     (torch.float64, "highest"): 57.8e12,  # float64 ignores the mode
 }
-_ESC_FIXED_S = 3.2e-3
-_ESC_PRODUCT_S = 0.44e-9
+_ESC_FIXED_S = 0.77e-3
+_ESC_PRODUCT_S = 0.177e-9
 _ESC_PRODUCT_BYTES = {torch.float32: 49, torch.float64: 55}
 
 
@@ -303,10 +308,13 @@ def _expand_joined(a_rows, a_indices, a_data, b_indptr, b_indices, b_data,
 
 def _compress(row_s, col_s, val_s, alpha, nnz_c: int, m: int):
     """Sum duplicate (row, col) runs with the fixed doubling tree; CSR
-    (indptr, col, alpha * sums)."""
-    out_row, out_col, out_val = _chunk_extract(row_s, col_s, val_s, alpha,
-                                               nnz_c)
-    return prim.build_indptr(out_row, m), out_col, out_val
+    (indptr, col, alpha * sums) (`kernels/esc_compress.compress_runs`)."""
+    dev = row_s.device
+    indptr = torch.empty(m + 1, dtype=INDEX_DTYPE, device=dev)
+    col = torch.empty(nnz_c, dtype=INDEX_DTYPE, device=dev)
+    val = torch.empty(nnz_c, dtype=val_s.dtype, device=dev)
+    compress_runs(row_s, col_s, val_s, alpha, indptr, col, val)
+    return indptr, col, val
 
 
 def _esc_expand_sort_count(a_rows, a_indices, a_data,
@@ -314,7 +322,8 @@ def _esc_expand_sort_count(a_rows, a_indices, a_data,
                            counts, ends, P: int, m: int, n: int,
                            k: int = 0, joined: bool = False):
     """ESC numeric front half: expand all P partial products, stable-lexsort
-    by (row, col), count distinct pairs (a 0-d tensor; no host sync)."""
+    by (row, col), count distinct pairs (a 0-d tensor, `count_runs`; no
+    host sync)."""
     if joined:
         row, col, val = _expand_joined(a_rows, a_indices, a_data, b_indptr,
                                        b_indices, b_data, counts, ends, P, k)
@@ -322,7 +331,7 @@ def _esc_expand_sort_count(a_rows, a_indices, a_data,
         row, col, val = _expand(a_rows, a_indices, a_data, b_indptr,
                                 b_indices, b_data, counts, ends, P)
     row_s, col_s, (val_s,) = prim.lexsort_rowcol(row, col, (val,), (m, n))
-    return row_s, col_s, val_s, prim.count_unique_sorted(row_s, col_s)
+    return row_s, col_s, val_s, count_runs(row_s, col_s)
 
 
 def _empty_csr(m: int, n: int, dtype, device):
@@ -370,59 +379,54 @@ def _spgemm_alg2_esc(a, b, alpha, joined: bool = False, work=None):
 def _chunk_esc(a_indices, a_data, a_rows, b_indptr, b_indices, b_data,
                e0: int, e1: int, pw: int, m: int, n: int):
     """One ESC pass over the A entries [e0, e1) of a row chunk, whose pw
-    products are known on the host: the sorted triplets and the chunk's
-    distinct count (0-d).  The JAX version pads every chunk to the widest
-    one (W products, sentinel rows) because XLA shapes are static; here
-    each chunk holds only its own triplets."""
+    products are known on the host: the sorted triplets.  The JAX version
+    pads every chunk to the widest one (W products, sentinel rows) because
+    XLA shapes are static; here each chunk holds only its own triplets."""
     counts, ends = _work_estimation(a_indices[e0:e1], b_indptr)
     row, col, val = _expand(a_rows[e0:e1], a_indices[e0:e1], a_data[e0:e1],
                             b_indptr, b_indices, b_data, counts, ends, pw)
     row_s, col_s, (val_s,) = prim.lexsort_rowcol(row, col, (val,), (m, n))
-    return row_s, col_s, val_s, prim.count_unique_sorted(row_s, col_s)
-
-
-def _chunk_extract(row_s, col_s, val_s, alpha, nnz_c: int):
-    """(row, col, alpha * sum) of each of the nnz_c runs of sorted
-    triplets, each run summed with the fixed doubling tree."""
-    r, c, v = prim.sum_duplicates_sorted_tree(row_s, col_s, val_s, nnz_c)
-    return r, c, v * prim.scalar_as(alpha, v.dtype)
+    return row_s, col_s, val_s
 
 
 def _alg3_esc_count(a, b, chunk_meta, m: int, n: int) -> torch.Tensor:
     """Sizing sweep: one ESC chunk live at a time; per-chunk distinct
-    counts stay on the device for one readback (the workEstimation
-    sweep)."""
+    counts (`count_runs`) stay on the device for one readback (the
+    workEstimation sweep)."""
     counts = torch.zeros(len(chunk_meta), dtype=torch.int64,
                          device=a.device)
     a_rows = a.rows
     for i, (_, _, e0, e1, pw) in enumerate(chunk_meta):
         if pw:
-            *_, nnz_c = _chunk_esc(a.indices, a.data, a_rows, b.indptr,
-                                   b.indices, b.data, e0, e1, pw, m, n)
-            counts[i] = nnz_c
+            row_s, col_s, _ = _chunk_esc(a.indices, a.data, a_rows, b.indptr,
+                                         b.indices, b.data, e0, e1, pw, m, n)
+            counts[i] = count_runs(row_s, col_s)
     return counts
 
 
 def _alg3_esc_compute(a, b, chunk_meta, counts_h, alpha, m: int, n: int,
                       total: int):
     """Numeric sweep: recompute each chunk (cuSPARSE's staged pipeline also
-    runs estimate + compute) and write its compacted output at its exact
-    offset; the workspace stays one chunk + the output buffers."""
-    row = torch.empty(total, dtype=INDEX_DTYPE, device=a.device)
+    runs estimate + compute) and compress it into its rows of indptr and
+    its exact offset of col and val (`compress_runs`); the workspace stays
+    one chunk + the output buffers.  The rows of a chunk with no product
+    hold the offset."""
+    indptr = torch.empty(m + 1, dtype=INDEX_DTYPE, device=a.device)
     col = torch.empty(total, dtype=INDEX_DTYPE, device=a.device)
     val = torch.empty(total, dtype=a.dtype, device=a.device)
     a_rows = a.rows
     off = 0
-    for (_, _, e0, e1, pw), cnt in zip(chunk_meta, counts_h.tolist()):
+    for (r0, r1, e0, e1, pw), cnt in zip(chunk_meta, counts_h.tolist()):
         if not cnt:
+            indptr[r0:r1 + 1] = off
             continue
-        row_s, col_s, val_s, _ = _chunk_esc(
+        row_s, col_s, val_s = _chunk_esc(
             a.indices, a.data, a_rows, b.indptr, b.indices, b.data,
             e0, e1, pw, m, n)
-        r, c, v = _chunk_extract(row_s, col_s, val_s, alpha, cnt)
-        row[off:off + cnt], col[off:off + cnt], val[off:off + cnt] = r, c, v
+        compress_runs(row_s, col_s, val_s, alpha, indptr[r0:r1 + 1],
+                      col[off:off + cnt], val[off:off + cnt], r0, off)
         off += cnt
-    return prim.build_indptr(row, m), col, val
+    return indptr, col, val
 
 
 def _spgemm_alg3_esc(a, b, alpha, chunk_fraction: float,

@@ -1031,6 +1031,176 @@ def test_esc_on_card_bitwise_vs_cpu(dev, alg, cf):
         assert_bitwise(x, y)
 
 
+# runs of equal pairs for csrc/esc_compress.cu: (lengths, m, n); a run of
+# 2040 singles first puts the long runs across the 2048-position tiles
+ESC_RUNS = {
+    "1-70": (list(range(1, 71)) * 4, 500, 300),
+    "1023-1025": ([1] * 2040 + [1023, 1024, 1025, 1, 2, 3], 700, 900),
+    "4097": ([1] * 2040 + [4097, 5, 4097, 1], 300, 300),
+    "70001": ([2] * 1020 + [70001, 3, 70001], 50, 40),
+    "unfused": ([1, 2, 3, 5, 8, 33] * 700, 70000, 70000),  # m*n >= 2^31
+}
+
+
+def _esc_triplets(lengths, m, n, dtype, dev, seed, neg_zero=False):
+    """Lex-sorted (row, col, val) on `dev`, val of the torch `dtype`, with
+    runs of `lengths` at distinct pairs in order, shuffled, rows up to
+    m - 1 (the last rows empty), a tenth of the values (of each part of a
+    complex value) -0.0, all of them with `neg_zero`."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.asarray(lengths))
+    keys = np.sort(rng.choice((m - 3) * n, lengths.size, replace=False))
+    keys = np.repeat(keys, lengths)
+
+    def part():
+        x = rng.standard_normal(keys.size) * 10.0 ** rng.integers(
+            -3, 4, keys.size)
+        x[rng.random(keys.size) < 0.1] = -0.0
+        if neg_zero:
+            x[:] = -0.0
+        return torch.from_numpy(x)
+
+    vals = (torch.complex(part(), part()) if dtype.is_complex
+            else part()).to(dtype)
+    row, col = _on(dev, (keys // n).astype(np.int32),
+                   (keys % n).astype(np.int32))
+    return row, col, vals.to(dev)
+
+
+def _esc_compress_both(row, col, val, alpha, m):
+    """(count, indptr, col, val) of the kernels and of the plain version
+    on the same CUDA tensors."""
+    from spmm_tpu_torch.ops.kernels import esc_compress as ec
+
+    outs = []
+    for count, compress in ((ec.count_runs, ec.compress_runs),
+                            (ec.count_runs_plain, ec.compress_runs_plain)):
+        nnz = int(count(row, col))
+        got = (torch.empty(m + 1, dtype=torch.int32, device=row.device),
+               torch.empty(nnz, dtype=torch.int32, device=row.device),
+               torch.empty(nnz, dtype=val.dtype, device=row.device))
+        compress(row, col, val, alpha, *got)
+        outs.append((nnz, *got))
+    torch.cuda.synchronize()
+    return outs
+
+
+ESC_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.complex64,
+              torch.complex128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,alpha", [
+    *((d, a) for d in ESC_DTYPES for a in (1.0, 1.5)),
+    (torch.complex64, 1.5 - 0.25j), (torch.complex128, 1.5 - 0.25j)])
+@pytest.mark.parametrize("name", [*ESC_RUNS, "neg_zero"])
+def test_esc_compress_kernels_bitwise_vs_plain(dev, name, dtype, alpha):
+    """`count_runs` and `compress_runs` against their plain versions (the
+    doubling tree's torch passes) on the card, bitwise, in every dtype ESC
+    takes: runs of 1-70, 1023-1025, 4097 and 70 001 across tile
+    boundaries, -0.0 products, an m*n past 2^31 (no fused key), empty last
+    rows, a complex alpha; bitwise on rerun."""
+    lengths, m, n = ESC_RUNS.get(name, ESC_RUNS["1-70"])
+    row, col, val = _esc_triplets(lengths, m, n, dtype, dev, len(name),
+                                  neg_zero=name == "neg_zero")
+    (nnz, *got), (want_nnz, *want) = _esc_compress_both(row, col, val,
+                                                        alpha, m)
+    assert nnz == want_nnz == len(lengths)
+    for x, y in zip(got, want):
+        assert_bitwise(x, y)
+    if name == "neg_zero" and not dtype.is_complex:
+        assert torch.signbit(got[2]).all()
+    (again_nnz, *again), _ = _esc_compress_both(row, col, val, alpha, m)
+    for x, y in zip(again, got):
+        assert_bitwise(x, y)
+
+
+@pytest.mark.gpu
+def test_esc_compress_chunks_and_empty_on_card(dev):
+    """Two chunks of rows compressed into slices of one output at their
+    offsets give the whole call's bits (alg3's form); no product launches
+    nothing and leaves indptr at its base."""
+    from spmm_tpu_torch.ops.kernels import esc_compress as ec
+
+    lengths, m, n = ESC_RUNS["1023-1025"]
+    row, col, val = _esc_triplets(lengths, m, n, torch.float32, dev, 3)
+    (nnz, *whole), _ = _esc_compress_both(row, col, val, 1.5, m)
+    cut = m // 2
+    split = int(torch.searchsorted(row, torch.tensor(cut, device=dev)))
+    off = int(whole[0][cut])
+    parts = [torch.empty_like(x) for x in whole]
+    for lo, hi, p0, p1, base, end in ((0, cut, 0, split, 0, off),
+                                      (cut, m, split, row.numel(), off,
+                                       nnz)):
+        ec.compress_runs(row[p0:p1], col[p0:p1], val[p0:p1], 1.5,
+                         parts[0][lo:hi + 1], parts[1][base:end],
+                         parts[2][base:end], lo, base)
+    for x, y in zip(parts, whole):
+        assert_bitwise(x, y)
+    _build.reset_launches()
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    assert int(ec.count_runs(empty, empty)) == 0
+    indptr = torch.full((5,), -1, dtype=torch.int32, device=dev)
+    ec.compress_runs(empty, empty, torch.empty(0, device=dev), 2.0, indptr,
+                     empty, torch.empty(0, device=dev), 3, 7)
+    assert indptr.tolist() == [7] * 5
+    assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.gpu
+def test_esc_compress_raises_on_another_dtype_on_card(dev):
+    """A dtype ESC does not take raises on the card: no plain fallback."""
+    from spmm_tpu_torch.ops.kernels import esc_compress as ec
+
+    row, col, val = _esc_triplets([1, 2, 3], 10, 10, torch.float16, dev, 1)
+    out = (torch.empty(11, dtype=torch.int32, device=dev),
+           torch.empty(3, dtype=torch.int32, device=dev),
+           torch.empty(3, dtype=torch.float16, device=dev))
+    with pytest.raises(NotImplementedError, match="float16"):
+        ec.compress_runs(row, col, val, 1.0, *out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.0, 0.2, 0.05])
+def test_esc_alg3_chunks_without_products_on_card(dev, cf):
+    """alg3 ESC where a chunk of rows holds no product (empty rows of A,
+    the last ones among them): bitwise the CPU's run, indptr included."""
+    indptr, indices, data = csr_arrays(50, 40, 0.2, 4,
+                                       empty_rows=(0, 9, 47, 48, 49))
+    a = pt.CSR.from_parts(indptr, indices, data, (50, 40), device="cpu")
+    b = pt.random(40, 30, 0.2, format="csr", seed=5, device="cpu")
+    want = pt.spgemm(a, b, alpha=1.5, alg=3, chunk_fraction=cf, impl="esc")
+    got = pt.spgemm(a.to(dev), b.to(dev), alpha=1.5, alg=3,
+                    chunk_fraction=cf, impl="esc")
+    for x, y in ((got.indptr, want.indptr), (got.indices, want.indices),
+                 (got.data, want.data)):
+        assert_bitwise(x, y)
+
+
+@pytest.mark.gpu
+def test_esc_launches_two_kernels_a_call(dev, capsys):
+    """ESC alg2 launches `esc_count` and `esc_compress` once each and no
+    other kernel of the port; alg3 ESC each once per chunk (every chunk
+    holds products here)."""
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    a = pt.random(300, 200, 0.05, format="csr", seed=7, device=dev)
+    b = pt.random(200, 250, 0.05, format="csr", seed=8, device=dev)
+    c = pt.spgemm(a, b, alg=2, impl="esc")
+    assert (torch.diff(c.indptr) > 0).all()
+    _build.reset_launches()
+    pt.spgemm(a, b, alg=2, impl="esc")
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    assert _build.LAUNCHES == dict(want, esc_count=1, esc_compress=1)
+    for cf in (0.2, 0.05):
+        capsys.readouterr()
+        _build.reset_launches()
+        sg._spgemm_alg3_esc(a, b, 1.0, cf, verbose=True)
+        chunks = int(capsys.readouterr().out.split("chunks=")[1].split()[0])
+        assert chunks > 1
+        assert _build.LAUNCHES == dict(want, esc_count=chunks,
+                                       esc_compress=chunks)
+
+
 @pytest.mark.gpu
 def test_sum_duplicates_on_card_bitwise_vs_cpu(dev):
     from torch_port_helpers import unsorted_csr_arrays

@@ -15,6 +15,8 @@ import pathlib
 import shutil
 import subprocess
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -24,6 +26,7 @@ import spmm_tpu as st  # noqa: E402
 import spmm_tpu_torch as pt  # noqa: E402
 from spmm_tpu.sparse import io as jax_io  # noqa: E402
 from spmm_tpu_torch.ops import _primitives as prim  # noqa: E402
+from spmm_tpu_torch.ops.kernels import esc_compress  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
     assert_bitwise, assert_csr_bitwise, assert_csr_match, pair,
     unsorted_csr_arrays, unsorted_pair)
@@ -422,3 +425,171 @@ def test_spgemm_of_unsorted_duplicate_operands(alg):
                                    atol=1e-6 * np.abs(w).max())
     else:
         assert_csr_bitwise(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the association of csrc/esc_compress.cu, replayed, and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _tree(v):
+    """A perfect binary tree over len(v) = 2^b values, each node right half
+    + left half, by a stack of pending sums (the kernel's `tree_deep`)."""
+    stack = []
+    for i, x in enumerate(v):
+        while i & 1:
+            x = x + stack.pop()
+            i >>= 1
+        stack.append(x)
+    return stack[0]
+
+
+def _bits(x):
+    """The bits of a numpy scalar or a 0-d torch tensor."""
+    return x.tobytes() if isinstance(x, np.generic) else int(
+        x.view(torch.int16))
+
+
+def _run_total(v):
+    """The doubling tree's total of one run: v[1:] cut left to right into
+    blocks of the set bits of len(v) - 1, smallest first, each a perfect
+    tree; total = B_1 + (B_2 + (... + (B_k + v[0])))."""
+    acc, pos, rest = v[0], 1, len(v) - 1
+    while rest:
+        w = rest & -rest
+        acc = _tree(v[pos:pos + w]) + acc
+        pos, rest = pos + w, rest - w
+    return acc
+
+
+def _warp_run_total(v):
+    """The same total as a warp of the kernel forms it: a block of 32 or
+    more values cut into 32 subtrees, one a lane, joined pairwise (lane l
+    and l ^ o, the higher lane's sum + the lower's)."""
+    acc, pos, rest = v[0], 1, len(v) - 1
+    while rest:
+        w = rest & -rest
+        if w < 32:
+            block = _tree(v[pos:pos + w])
+        else:
+            sub = w // 32
+            lanes = [_tree(v[pos + i * sub:pos + (i + 1) * sub])
+                     for i in range(32)]
+            o = 1
+            while o < 32:
+                lanes = [lanes[i] + lanes[i ^ o] if i & o
+                         else lanes[i ^ o] + lanes[i] for i in range(32)]
+                o *= 2
+            assert len({_bits(x) for x in lanes}) == 1
+            block = lanes[0]
+        acc = block + acc
+        pos, rest = pos + w, rest - w
+    return acc
+
+
+RUN_LENGTHS = {
+    "1-70": list(range(1, 71)),
+    "1023-1025": [1023, 1024, 1025],
+    "4097": [4097],
+    "neg_zero": [1, 2, 3, 40],
+    "lone": [1025],
+}
+
+
+@pytest.mark.parametrize("lengths", list(RUN_LENGTHS))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, "bfloat16"])
+@pytest.mark.parametrize("replay", [_run_total, _warp_run_total],
+                         ids=["thread", "warp"])
+def test_tree_association_replay_bitwise_vs_segsum_tree(replay, dtype,
+                                                        lengths):
+    """Each run's total under `segsum_tree` (at the run's last position)
+    is its replay in the association the kernel uses, bitwise: runs of the
+    given lengths back to back (a lone run alone), values spread over
+    seven decades so that the order of the additions shows.  bfloat16
+    replays on 0-d tensors (each sum in float, rounded to bfloat16)."""
+    lens = RUN_LENGTHS[lengths]
+    bf16 = dtype == "bfloat16"
+    rng = np.random.default_rng(len(lens) + (2 if bf16 else
+                                             np.dtype(dtype).itemsize))
+    total = sum(lens)
+    if lengths == "neg_zero":
+        vals = np.full(total, -0.0)
+    else:
+        vals = (rng.standard_normal(total)
+                * 10.0 ** rng.integers(-3, 4, total))
+    vals = (torch.from_numpy(vals).to(torch.bfloat16) if bf16
+            else torch.from_numpy(vals.astype(dtype)))
+    heads = np.zeros(total, bool)
+    starts = np.cumsum([0] + lens[:-1])
+    heads[starts] = True
+    scanned = prim.segsum_tree(vals, torch.from_numpy(heads))
+    vals = vals if bf16 else vals.numpy()
+    got = [replay(list(vals[s:s + n])) for s, n in zip(starts, lens)]
+    got = torch.stack(got) if bf16 else np.array(got, dtype)
+    assert_bitwise(got, scanned[torch.from_numpy(starts + np.array(lens)
+                                                 - 1)])
+    if lengths == "neg_zero":
+        assert torch.signbit(torch.as_tensor(got)).all()
+
+
+def test_warp_split_replay_of_a_long_run():
+    """A run of 70 001 (blocks of 65 536, 4096, 256, 64, 32 and 16): the
+    warp's split and the thread's pass give the tree's bits."""
+    vals = np.random.default_rng(9).standard_normal(70001).astype(np.float32)
+    heads = np.zeros(vals.size, bool)
+    heads[0] = True
+    want = prim.segsum_tree(torch.from_numpy(vals),
+                            torch.from_numpy(heads)).numpy()[-1:]
+    assert_bitwise(np.array([_warp_run_total(list(vals))]), want)
+    assert_bitwise(np.array([_run_total(list(vals))]), want)
+
+
+def _sorted_triplets(m, n, P, max_run, seed, dtype=np.float32):
+    """Lex-sorted (row, col, val) with runs of 1 to max_run equal pairs,
+    about a tenth of the products -0.0."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, m * n, P))
+    reps = rng.integers(1, max_run + 1, keys.size)
+    keys = np.repeat(keys, reps)
+    vals = rng.standard_normal(keys.size).astype(dtype)
+    vals[rng.random(keys.size) < 0.1] = -0.0
+    return ((keys // n).astype(np.int32), (keys % n).astype(np.int32),
+            vals)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 1.5, -0.3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,max_run", [(40, 30, 1), (60, 50, 7),
+                                         (1, 200, 40), (300, 7, 3)])
+def test_compress_runs_plain_bitwise_vs_jax(m, n, max_run, dtype, alpha):
+    """The wrapper on the CPU (its plain version) against JAX's ESC
+    `_compress` and `count_unique_sorted`: indptr, columns and alpha times
+    each run's tree sum, bitwise; and the same bits written as two chunks
+    of rows into slices of one output (alg3's form)."""
+    r, c, v = _sorted_triplets(m, n, 300, max_run, m + n + max_run, dtype)
+    with jax.enable_x64(dtype == np.float64):
+        nnz = int(jax_prim.count_unique_sorted(r, c))
+        want = jax_sg._compress(r, c, v, jnp.asarray(alpha, v.dtype), nnz, m)
+        want = [np.asarray(x) for x in want]
+    rt, ct, vt = (torch.from_numpy(x) for x in (r, c, v))
+    assert int(esc_compress.count_runs(rt, ct)) == nnz
+    got = (torch.empty(m + 1, dtype=torch.int32),
+           torch.empty(nnz, dtype=torch.int32), torch.empty(nnz, dtype=vt.dtype))
+    esc_compress.compress_runs(rt, ct, vt, alpha, *got)
+    for x, w in zip(got, want):
+        assert_bitwise(x, w)
+    # rows [0, cut) and [cut, m) apart, each at its offset
+    cut = m // 2
+    split = int(np.searchsorted(r, cut))
+    off = int(want[0][cut])
+    parts = (torch.empty(m + 1, dtype=torch.int32),
+             torch.empty(nnz, dtype=torch.int32),
+             torch.empty(nnz, dtype=vt.dtype))
+    for lo, hi, p0, p1, base in ((0, cut, 0, split, 0),
+                                 (cut, m, split, r.size, off)):
+        end = nnz if hi == m else off
+        esc_compress.compress_runs(
+            rt[p0:p1], ct[p0:p1], vt[p0:p1], alpha, parts[0][lo:hi + 1],
+            parts[1][base:end], parts[2][base:end], lo, base)
+    for x, w in zip(parts, want):
+        assert_bitwise(x, w)

@@ -11,7 +11,7 @@ A), each turn in a process of its own.
     python3 tools/spmv_turns.py --only pattern bsr  # some groups only
 
 Groups (all by default): spmv, serving, pattern, bsr, count, expand,
-extract, spmm.
+extract, spmm, esc.
 
 SpMV cells: 1024^2/0.1 (seed 2008), 16384^2/5e-3 (seed 2014) and the
 power-law 2^20 matrix (`power_law_rows(2^20, 2^20, 16, alpha=1.5,
@@ -52,7 +52,11 @@ the cell itself (a random X of 2.56 MB, served by L2), each as gathered
 bytes over device time; and probes that split the power-law call
 (`powerlaw_probes`): its rows up to the cut alone, its longer rows alone,
 one full row of 2^20 entries, and the chunks in row order or with the rows
-of 1024 chunks or more first.
+of 1024 chunks or more first.  ESC cells: SpGEMM 1024^2/0.1 and
+8192^2/1e-3 (the seeds above): the whole `spgemm(a, b, alg=2, impl="esc")`,
+and on its sorted products the run count and the compress (`_compress`,
+alpha 1.5) alone, each with its bytes-once bound (8 bytes a product to
+count; 12 a product, 8 an output entry and 4 a row to compress).
 
 Per call: `call_ms`, the median CUDA-event time around one call (the host's
 wrapper included), taken in turns within the process (library, kernels,
@@ -96,7 +100,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_S = 3.35e12
 TF32_FLOPS = 494.7e12
 GROUPS = ("spmv", "serving", "pattern", "bsr", "count", "expand", "extract",
-          "spmm")
+          "spmm", "esc")
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -238,6 +242,8 @@ def measure(repo: str, groups) -> dict:
         extract_turns(torch, pt, dev, out)
     if "spmm" in groups:
         spmm_turns(torch, np, pt, power_law_rows, kr, dev, out)
+    if "esc" in groups:
+        esc_turns(torch, pt, dev, out)
     return out
 
 
@@ -607,6 +613,41 @@ def spmm_turns(torch, np, pt, power_law_rows, kr, dev, out):
                                f"{'cut=8 ch=16 ' if kw else ''}sell={sell}")
                         out["bits"][key] = digest(torch,
                                                   kr.spmm_routed(xx, p))
+
+
+def esc_turns(torch, pt, dev, out):
+    import importlib
+
+    sg = importlib.import_module("spmm_tpu_torch.ops.spgemm")
+    # the run count of ESC's front half: the kernel where the checkout has
+    # it, the torch ops before
+    count = getattr(sg, "count_runs", sg.prim.count_unique_sorted)
+    for name, nn, d, sa, sb in (("1024^2/0.1", 1024, 0.1, 2008, 2009),
+                                ("8192^2/1e-3", 8192, 1e-3, 2012, 2013)):
+        a = pt.random(nn, nn, d, format="csr", seed=sa, device=dev)
+        b = pt.random(nn, nn, d, format="csr", seed=sb, device=dev)
+        counts, ends, P = sg._esc_work(a, b)
+        row_s, col_s, val_s, nnz = sg._esc_expand_sort_count(
+            a.rows, a.indices, a.data, b.indptr, b.indices, b.data, counts,
+            ends, P, nn, nn)
+        nnz = int(nnz)
+        calls = {"spgemm_esc": lambda: pt.spgemm(a, b, alg=2, impl="esc"),
+                 "esc_count": lambda: count(row_s, col_s),
+                 "esc_compress": lambda: sg._compress(row_s, col_s, val_s,
+                                                      1.5, nnz, nn)}
+        row = {"products": P, "nnz": nnz,
+               "bound_count_ms": 8 * P / HBM_BYTES_S * 1e3,
+               "bound_compress_ms": (12 * P + 8 * nnz + 4 * (nn + 1))
+               / HBM_BYTES_S * 1e3}
+        row.update(in_turns(torch, calls, None, tuple(calls)))
+        out[f"esc {name}"] = row
+        c = calls["spgemm_esc"]()
+        for what, t in zip(("indptr", "indices", "data"),
+                           (c.indptr, c.indices, c.data)):
+            out["bits"][f"esc {name} spgemm {what}"] = digest(torch, t)
+        for what, t in zip(("indptr", "col", "val"), calls["esc_compress"]()):
+            out["bits"][f"esc {name} compress {what}"] = digest(torch, t)
+        del a, b, counts, ends, row_s, col_s, val_s, calls, c
 
 
 def main():
