@@ -238,6 +238,37 @@ def test_a_dotted_metric_shares_its_base_reader():
         harness.load_reader("call_ms")(run)
 
 
+def cells_of(metric):
+    return set(metric.get("workloads", [w["name"] for w in SPEC["workloads"]]))
+
+
+def test_a_dotted_metric_judges_no_cell_its_base_judges():
+    """`<base>.<group>` without a reader of its own is `<base>`'s reading:
+    in a cell that `<base>` judges too, it is the same number under two
+    bounds (or twice in one line)."""
+    metrics = {m["name"]: m for m in SPEC["end_to_end"] + SPEC["per_layer"]}
+    readers = ROOT / "cardbench" / "metrics"
+    for name, m in metrics.items():
+        base = metrics.get(name.split(".")[0])
+        if (base is None or base is m
+                or (readers / f"{name}.py").is_file()):
+            continue
+        assert not cells_of(m) & cells_of(base), (name, base["name"])
+
+
+def test_every_cell_reports_what_its_layers_move():
+    """Each cell reports `setup_s`, another end-to-end metric and a
+    per-layer metric, and each per-layer metric moves an end-to-end
+    metric that every one of its cells reports."""
+    for w in SPEC["workloads"]:
+        e2e = {m["name"] for m in SPEC["end_to_end"]
+               if w["name"] in cells_of(m)}
+        layers = [m for m in SPEC["per_layer"] if w["name"] in cells_of(m)]
+        assert "setup_s" in e2e and len(e2e) >= 2 and layers, w["name"]
+        for m in layers:
+            assert m["moves"] in e2e, (w["name"], m["name"])
+
+
 def test_p95_is_of_every_call():
     run = run_of(calls_s=[i / 1000 for i in range(1, 101)])
     assert harness.load_reader("call_p95_ms")(run) == pytest.approx(95.05)
