@@ -10,7 +10,9 @@ its row's lane; that exists because a TPU cannot gather, and none of it
 carries over.  The idea kept is the serving one: analyse the structure
 once, re-lay the values so that the kernel streams them with no index work.
 
-The port's plan, built on the matrix's device (a few host syncs for sizes):
+The port's plan, built on the matrix's device (a few host syncs for sizes,
+each a `sync.<what>` span: `sync.long_rows`, `sync.long_chunks` and
+`sync.long_nnz` in every plan):
 
   * rows of length <= `cut` go to SELL-32-sigma slices: sorted longest
     first within windows of `SIGMA` rows, 32 to a slice, each slice as wide
@@ -58,6 +60,7 @@ from spmm_tpu_torch.ops import _primitives as prim
 from spmm_tpu_torch.ops.kernels import _build
 from spmm_tpu_torch.ops.kernels._checks import (check_csr, check_dense,
                                                 csr_for_plan)
+from spmm_tpu_torch.utils.profiler import span
 
 CUT = 256        # rows longer than this leave the slices
 CH = 512         # entries per chunk of a long row
@@ -128,14 +131,16 @@ def _long_row_chunks(indptr: torch.Tensor, lens: torch.Tensor, cut: int,
                      ch: int):
     """(long_rows, long_chunk_ptr, chunk_start, chunk_end, chunk_row) of
     the rows longer than `cut`, each cut into chunks of at most `ch`
-    entries."""
+    entries.  Two host syncs: `nonzero`'s size (span `sync.long_rows`) and
+    the chunk count (`sync.long_chunks`)."""
     dev = indptr.device
-    long_rows = torch.nonzero(lens > cut).flatten()
+    with span("sync.long_rows"):
+        long_rows = torch.nonzero(lens > cut).flatten()
     llens = lens[long_rows]
     nch = (llens + ch - 1) // ch
     zero = torch.zeros(1, dtype=INDEX_DTYPE, device=dev)
     long_chunk_ptr = torch.cat([zero, torch.cumsum(nch, 0, dtype=INDEX_DTYPE)])
-    nchunks = int(long_chunk_ptr[-1])  # host sync: the chunk count
+    nchunks = prim.read_host(long_chunk_ptr[-1], "long_chunks")
     owner = torch.repeat_interleave(
         torch.arange(long_rows.numel(), device=dev), nch.long(),
         output_size=nchunks)
@@ -169,7 +174,7 @@ def spmv_routed_plan(indptr, indices, data, m: int, n: int, *,
     lens = (indptr[1:] - indptr[:-1]).long()
     long_rows, long_chunk_ptr, chunk_start, chunk_end, chunk_row = \
         _long_row_chunks(indptr, lens, cut, ch)
-    long_nnz = int(lens[long_rows.long()].sum())
+    long_nnz = prim.read_host(lens[long_rows.long()].sum(), "long_nnz")
     # stable: chunks with the same first column keep their id order
     chunk_order = torch.sort(indices[chunk_start.long()],
                              stable=True).indices.to(INDEX_DTYPE)

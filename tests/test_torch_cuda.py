@@ -837,6 +837,49 @@ def test_spmv_plan_f64_entry_on_card(dev):
     assert_bitwise(pt.spmm(a, B, plan=(tag, p)), pt.spmm(a, B))
 
 
+@pytest.mark.gpu
+def test_spmm_graph500_mean_on_card(dev):
+    """Graph500's Kronecker graph at scale 14 (the benchmark's law, made on
+    the card), 1/deg values, H of k = 100 float32 columns: `spmm(A, H)` is
+    one `spmm_routed` launch and three host syncs (its chunk plan's), its
+    hub rows on the kernel's chunk path; bitwise on rerun and the plan's
+    own launch, every counter left at zero, and within the limit of the
+    cell g500-s22.sage-mean-k100 of the benchmark's float64 reference."""
+    import json
+    from pathlib import Path
+
+    from spmm_tpu_torch.ops.kernels import spmv_routed as kr
+
+    cell = (Path(__file__).resolve().parents[1] / "cardbench" / "workloads"
+            / "g500-s22.sage-mean-k100.json")
+    limit = json.loads(cell.read_text())["limits"]["value_err"]
+    law = _cardbench("laws", "kronecker.py")
+    g = law.make({"scale": 14, "edgefactor": 16,
+                  "initiator": [0.57, 0.19, 0.19], "values": "mean"},
+                 2**31 + 14, torch.float32, dev)
+    a = pt.CSR.from_parts(g.indptr, g.indices, g.data, g.shape,
+                          canonical=True)
+    n = g.shape[1]
+    h = torch.rand((n, 100), generator=torch.Generator(device=dev)
+                   .manual_seed(7), device=dev)
+    call = lambda: pt.spmm(a, h)  # noqa: E731
+    _build.reset_launches()
+    y = call()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"spmm_routed": 1}
+    assert _host_syncs(call) == 3
+    p = kr.spmv_routed_plan(g.indptr, g.indices, g.data, n, n, sell=False)
+    assert p.chunk_row.numel() > p.long_rows.numel() > 0
+    yp = kr.spmm_routed(h, p)
+    torch.cuda.synchronize()
+    assert not p.counters.any()
+    assert_bitwise(y, call())
+    assert_bitwise(y, yp)
+    ref = _cardbench("reference", "spmm.py").spmm(g, h)
+    err = float((y.double() - ref).abs().max() / ref.abs().max())
+    assert err <= limit, err
+
+
 def routed_f32_digest(dev) -> str:
     """sha256 of the float32 `spmv_routed` answers of the cases above:
     every SPMV_EDGE matrix and the row of 563 chunks, at cut 32 / ch 64

@@ -283,3 +283,58 @@ def test_spmv_bitwise_equal_with_the_profiler_on_and_off(path):
     with cpu_profile():
         on = call().numpy().tobytes()
     assert on == off
+
+
+# ---------------------------------------------------------------------------
+# spmm: one root `spmm` a call, the path's span inside it
+# ---------------------------------------------------------------------------
+
+# path: the spans besides the root, and the host syncs a call
+SPMM_PATHS = {"plan": ({"spmm.routed"}, 0),
+              "csr": ({"spmm.plan", "spmm.routed"}, 3),
+              "dense": ({"spmm.dense"}, 0),
+              "bsr": ({"spmm.bsr"}, 0),
+              "gather": ({"spmm.gather"}, 0)}
+
+
+def spmm_call(path):
+    """A call of `spmm` that takes `path`: a routed plan, the default
+    float32 path (its chunk plan made per call), via="dense", via="bsr",
+    or float64 data (the gather path)."""
+    from spmm_tpu_torch.ops.kernels.spmv_routed import spmv_routed_plan
+    from spmm_tpu_torch.ops.spmm import spmm
+
+    a, _ = pair(m=40, k=30, density=0.2, seed=17)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal((30, 5))
+                         .astype(np.float32))
+    if path == "plan":
+        plan = ("routed", spmv_routed_plan(a.indptr, a.indices, a.data,
+                                           *a.shape, cut=4, ch=8))
+        return lambda: spmm(a, b, plan=plan)
+    if path == "gather":
+        a64, b64 = a.astype(torch.float64), b.double()
+        return lambda: spmm(a64, b64)
+    via = path if path in ("dense", "bsr") else "csr"
+    return lambda: spmm(a, b, via=via)
+
+
+@pytest.mark.parametrize("path", sorted(SPMM_PATHS))
+def test_spmm_is_one_root_with_its_path_inside(path):
+    call = spmm_call(path)
+    inner, syncs = SPMM_PATHS[path]
+    profiler.reset_spans()
+    calls = 3
+    with cpu_profile() as prof:
+        for _ in range(calls):
+            off = call()
+    tot = profiler.span_totals()
+    assert {n for n in tot if not n.startswith("sync.")} == {"spmm", *inner}
+    assert roots(tot) == tot["spmm"]["roots"] == tot["spmm"]["count"] == calls
+    assert all(tot[n]["count"] == calls and not tot[n]["roots"]
+               for n in inner)
+    assert sum(t["count"] for n, t in tot.items()
+               if n.startswith("sync.")) == syncs * calls
+    assert set(tot) <= {e[0] for e in host_events(prof)}
+    profiler.reset_spans()
+    assert call().numpy().tobytes() == off.numpy().tobytes()
+    assert profiler.span_totals() == {}
